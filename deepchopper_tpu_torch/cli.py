@@ -1,9 +1,11 @@
-"""Command-line interface: `predict`.
+"""Command-line interface: `predict`, `train`, `eval`.
 
-Port of the `predict` subcommand of `deepchopper_tpu/cli.py`, with its flags
-except `--fused-chop`, `--fq`, `--shard-format` (shards are `.npz`) and
-`--conv-precision`, plus `--device`. Runs on the card unless asked for the
-CPU; without CUDA it exits non-zero and writes nothing.
+Port of those subcommands of `deepchopper_tpu/cli.py`. `predict` keeps its
+flags except `--fused-chop`, `--fq`, `--shard-format` (shards are `.npz`) and
+`--conv-precision`; `train` and `eval` keep `--config/-c`, the dotted
+`key.subkey=value` overrides and `--verbose` (`train --sweep` is not ported
+yet). Each adds `--device`: they run on the card unless asked for the CPU;
+without CUDA they exit non-zero and write nothing.
 """
 
 from __future__ import annotations
@@ -37,6 +39,16 @@ def _add_predict(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--verbose", "-v", action="store_true", help="Log at INFO level")
 
 
+def _add_train_eval(sub: argparse._SubParsersAction) -> None:
+    for name, text in (("train", "Train a model (config file + dotted overrides)"),
+                       ("eval", "Evaluate a checkpoint (test split, or predict)")):  # fmt: skip
+        p = sub.add_parser(name, help=text)
+        p.add_argument("--config", "-c", type=Path, default=None, help="YAML config file (needs PyYAML)")
+        p.add_argument("overrides", nargs="*", help="key.subkey=value overrides")
+        p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device to run the model on")
+        p.add_argument("--verbose", "-v", action="store_true", help="Log at INFO level")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepchopper-tpu-torch",
@@ -45,6 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--version", "-V", action="version", version=f"DeepChopper-TPU-torch {__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_predict(sub)
+    _add_train_eval(sub)
     return parser
 
 
@@ -97,13 +110,49 @@ def cmd_predict(args: argparse.Namespace) -> int:
     return 0
 
 
+def train_config(args: argparse.Namespace):
+    """The TrainConfig of parsed `train`/`eval` arguments (`--device` wins
+    over a `device=` override)."""
+    from .train.config import load_config
+
+    cfg = load_config(args.config, args.overrides)
+    cfg.device = args.device
+    return cfg
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    from .device import DeviceUnavailable
+    from .train.loop import train
+
+    try:
+        metrics = train(train_config(args))
+    except DeviceUnavailable as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 2
+    print(f"train done: {metrics}")
+    return 0
+
+
+def cmd_eval(args: argparse.Namespace) -> int:
+    from .device import DeviceUnavailable
+    from .train.loop import evaluate
+
+    try:
+        metrics = evaluate(train_config(args))
+    except DeviceUnavailable as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 2
+    print(f"eval done: {metrics}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO if getattr(args, "verbose", False) else logging.WARNING,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    handlers = {"predict": cmd_predict}
+    handlers = {"predict": cmd_predict, "train": cmd_train, "eval": cmd_eval}
     return handlers[args.command](args)
 
 

@@ -47,26 +47,15 @@
 // padding, and tensor-core DFT stages (FlashFFTConv) are the known ways to
 // close it.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mixer_common.cuh"
 
 namespace {
 
+using namespace mixer_common;
+
 constexpr int kMaxSmemComplex = 16384;  // 128 KB of float2
-constexpr int kMaxThreads = 512;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ float2 cconj(float2 a) { return make_float2(a.x, -a.y); }
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
 
 struct Args {
   const void* proj;
@@ -80,96 +69,6 @@ struct Args {
   int L;
   int log2n;
 };
-
-// Short-convolved gate value at position n (n < L), float32.
-template <typename T>
-__device__ __forceinline__ float gate(const T* row, int n, float k0, float k1, float k2, float b) {
-  float xm2 = n >= 2 ? to_f(row[n - 2]) : 0.f;
-  float xm1 = n >= 1 ? to_f(row[n - 1]) : 0.f;
-  return k0 * xm2 + k1 * xm1 + k2 * to_f(row[n]) + b;
-}
-
-struct Gate {
-  float k0, k1, k2, b;
-  __device__ Gate(const Args& a, int ch) {
-    int w3 = 3 * a.D;
-    k0 = a.taps[ch];
-    k1 = a.taps[w3 + ch];
-    k2 = a.taps[2 * w3 + ch];
-    b = a.bsh[ch];
-  }
-};
-
-// w[n] = v[n] * x1[n] for n < L, zero beyond.
-template <typename T>
-__device__ __forceinline__ float wval(const T* x1, const T* v, const Gate& g1, const Gate& gv, int n, int L) {
-  if (n >= L) return 0.f;
-  return gate(v, n, gv.k0, gv.k1, gv.k2, gv.b) * gate(x1, n, g1.k0, g1.k1, g1.k2, g1.b);
-}
-
-// In-place radix-2 decimation-in-frequency over `size` complex values made of
-// independent length-H transforms (natural order in, bit-reversed out).
-__device__ void dif_stages(float2* s, int size, int H, int n, const float2* tw) {
-  for (int span = H >> 1; span >= 1; span >>= 1) {
-    __syncthreads();
-    const int tstride = n / (2 * span);
-    for (int t = threadIdx.x; t < (size >> 1); t += blockDim.x) {
-      const int j = t & (span - 1);
-      const int i = ((t - j) << 1) + j;
-      const float2 a = s[i];
-      const float2 b = s[i + span];
-      s[i] = cadd(a, b);
-      s[i + span] = cmul(csub(a, b), __ldg(&tw[j * tstride]));
-    }
-  }
-  __syncthreads();
-}
-
-// In-place radix-2 decimation-in-time inverse (bit-reversed in, natural out),
-// unnormalized: 1/N is folded into khat.
-__device__ void dit_stages(float2* s, int size, int H, int n, const float2* tw) {
-  for (int span = 1; span <= (H >> 1); span <<= 1) {
-    __syncthreads();
-    const int tstride = n / (2 * span);
-    for (int t = threadIdx.x; t < (size >> 1); t += blockDim.x) {
-      const int j = t & (span - 1);
-      const int i = ((t - j) << 1) + j;
-      const float2 a = s[i];
-      const float2 b = cmul(s[i + span], cconj(__ldg(&tw[j * tstride])));
-      s[i] = cadd(a, b);
-      s[i + span] = csub(a, b);
-    }
-  }
-  __syncthreads();
-}
-
-// Real-FFT split, filter multiply and real-IFFT merge for the pair (k, M-k).
-// A = Z[k], B = Z[(M-k) mod M] on entry; returns Z'[k] in *pa and
-// Z'[M-k] in *pb (the caller skips *pb when M-k aliases k or 0).
-__device__ __forceinline__ void pair_pass(float2 A, float2 B, int k, int M, const float2* kh,
-                                          const float2* tw, float2* pa, float2* pb) {
-  const float2 W = __ldg(&tw[k]);  // W_N^k, k <= M/2
-  // Fe = (A + conj B) / 2, Fo = (A - conj B) / (2i)
-  const float2 fe = make_float2(0.5f * (A.x + B.x), 0.5f * (A.y - B.y));
-  const float2 fo = make_float2(0.5f * (A.y + B.y), -0.5f * (A.x - B.x));
-  const float2 wfo = cmul(W, fo);
-  const float2 xk = cadd(fe, wfo);            // X[k]
-  const float2 xmk = cconj(csub(fe, wfo));    // X[M-k]
-  const float2 yk = cmul(xk, __ldg(&kh[k]));
-  const float2 ymk = cmul(xmk, __ldg(&kh[M - k]));
-  // P = Y[k] + conj Y[M-k], Q = Y[k] - conj Y[M-k]
-  const float2 P = make_float2(yk.x + ymk.x, yk.y - ymk.y);
-  const float2 Q = make_float2(yk.x - ymk.x, yk.y + ymk.y);
-  // Z'[k] = P + i conj(W) Q ; Z'[M-k] = conj P + i W conj Q
-  const float2 cq = cmul(cconj(W), Q);
-  *pa = make_float2(P.x - cq.y, P.y + cq.x);
-  const float2 wq = cmul(W, cconj(Q));
-  *pb = make_float2(P.x - wq.y, -P.y + wq.x);
-}
-
-__device__ __forceinline__ int brev(int x, int bits) {
-  return bits ? (int)(__brev((unsigned)x) >> (32 - bits)) : 0;
-}
 
 template <typename T>
 __global__ void mixer_fwd_shared(Args a) {
@@ -187,7 +86,7 @@ __global__ void mixer_fwd_shared(Args a) {
   const T* x2 = proj + base + (size_t)c * L;
   const T* x1 = proj + base + (size_t)(D + c) * L;
   const T* v = proj + base + (size_t)(2 * D + c) * L;
-  const Gate g2(a, c), g1(a, D + c), gv(a, 2 * D + c);
+  const Gate g2(a.taps, a.bsh, D, c), g1(a.taps, a.bsh, D, D + c), gv(a.taps, a.bsh, D, 2 * D + c);
 
   // First DIF stage, folded into the fill: upper half of z is zero.
   for (int m = threadIdx.x; m < H; m += blockDim.x) {
@@ -213,8 +112,8 @@ __global__ void mixer_fwd_shared(Args a) {
   T* out = static_cast<T*>(a.out) + ((size_t)b * D + c) * L;
   for (int m = threadIdx.x; 2 * m < L; m += blockDim.x) {
     const float2 zz = cadd(s[m], cmul(s[m + H], cconj(__ldg(&a.tw[2 * m]))));
-    store(&out[2 * m], zz.x * gate(x2, 2 * m, g2.k0, g2.k1, g2.k2, g2.b));
-    if (2 * m + 1 < L) store(&out[2 * m + 1], zz.y * gate(x2, 2 * m + 1, g2.k0, g2.k1, g2.k2, g2.b));
+    store(&out[2 * m], zz.x * gate(x2, 2 * m, g2));
+    if (2 * m + 1 < L) store(&out[2 * m + 1], zz.y * gate(x2, 2 * m + 1, g2));
   }
 }
 
@@ -234,7 +133,7 @@ __global__ void mixer_fwd_global(Args a) {
   const T* x2 = proj + base + (size_t)c * L;
   const T* x1 = proj + base + (size_t)(D + c) * L;
   const T* v = proj + base + (size_t)(2 * D + c) * L;
-  const Gate g2(a, c), g1(a, D + c), gv(a, 2 * D + c);
+  const Gate g2(a.taps, a.bsh, D, c), g1(a.taps, a.bsh, D, D + c), gv(a.taps, a.bsh, D, 2 * D + c);
   const float2* kh = a.khat + (size_t)c * (M + 1);
   float2* ework = a.scratch + (size_t)blockIdx.x * H;
 
@@ -266,8 +165,8 @@ __global__ void mixer_fwd_global(Args a) {
   T* out = static_cast<T*>(a.out) + ((size_t)b * D + c) * L;
   for (int m = threadIdx.x; 2 * m < L; m += blockDim.x) {
     const float2 zz = cadd(ework[m], cmul(s[m], cconj(__ldg(&a.tw[2 * m]))));
-    store(&out[2 * m], zz.x * gate(x2, 2 * m, g2.k0, g2.k1, g2.k2, g2.b));
-    if (2 * m + 1 < L) store(&out[2 * m + 1], zz.y * gate(x2, 2 * m + 1, g2.k0, g2.k1, g2.k2, g2.b));
+    store(&out[2 * m], zz.x * gate(x2, 2 * m, g2));
+    if (2 * m + 1 < L) store(&out[2 * m + 1], zz.y * gate(x2, 2 * m + 1, g2));
   }
 }
 

@@ -1,4 +1,5 @@
-"""Seeded synthetic nanopore-like FASTQ for smoke runs and benchmarks.
+"""Seeded synthetic nanopore-like FASTQ for smoke runs, benchmarks and
+training tests (unlabelled reads, or reads with a planted adapter).
 
 The read-length distribution is the JAX package's benchmark mix
 (`bench.py:synth_fastq`): a lognormal body around 1.2 kb, and 4% of reads
@@ -33,4 +34,32 @@ def synth_fastq(path: str | Path, lengths: np.ndarray, seed: int = 0) -> Path:
             seq = rng.choice(bases, int(n)).tobytes()
             qual = rng.integers(33 + 5, 33 + 40, int(n)).astype(np.uint8).tobytes()
             fh.write(b"@bench_read_" + str(i).encode() + b"\n" + seq + b"\n+\n" + qual + b"\n")
+    return path
+
+
+def synth_labelled_fastq(path: str | Path, lengths: np.ndarray, seed: int = 0, adapter_len: int = 60) -> Path:
+    """Write one labelled read per entry of `lengths` (each >= adapter_len + 30):
+    random ACGT with a planted all-A adapter of `adapter_len` bases whose
+    flanking bases are non-A, so the label boundary is exactly the A-run. The
+    adapter's span goes into the id as `bench_read_<i>|<start>:<end>`, the
+    form `ops/labels.parse_target_from_id` reads (the recipe of the JAX
+    package's separable training set, tests/test_train_harness.py)."""
+    rng = np.random.default_rng(seed + 2)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    non_a = np.frombuffer(b"CGT", dtype=np.uint8)
+    path = Path(path)
+    with open(path, "wb") as fh:
+        for i, n in enumerate(lengths):
+            n = int(n)
+            if n < adapter_len + 30:
+                raise ValueError(f"read {i}: length {n} leaves no room for a {adapter_len}-base adapter")
+            seq = rng.choice(bases, n)
+            start = int(rng.integers(10, n - adapter_len - 20))
+            end = start + adapter_len
+            seq[start:end] = ord("A")
+            seq[start - 1] = rng.choice(non_a)
+            seq[end] = rng.choice(non_a)
+            qual = rng.integers(33 + 5, 33 + 40, n).astype(np.uint8).tobytes()
+            rid = f"bench_read_{i}|{start}:{end}".encode()
+            fh.write(b"@" + rid + b"\n" + seq.tobytes() + b"\n+\n" + qual + b"\n")
     return path

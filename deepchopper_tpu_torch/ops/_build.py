@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )  # fmt: skip
-SOURCES = ("mixer_fwd.cu",)
+SOURCES = ("mixer_fwd.cu", "mixer_bwd.cu")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -45,7 +45,9 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # Shared headers are part of every source's key: an edited header rebuilds.
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    text = (CSRC / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

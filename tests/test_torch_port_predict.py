@@ -181,7 +181,7 @@ def test_chip_smoke_exits_nonzero_without_cuda(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "deepchopper_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    banned = ("jax", "flax", "deepchopper_tpu")
+    banned = ("jax", "flax", "optax", "deepchopper_tpu")
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
