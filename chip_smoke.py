@@ -7,40 +7,49 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    predict and train paths from `deepchopper_tpu_torch/csrc` with nvcc
    (sm_90a), all nvcc processes started together.
 2. Holds each kernel to its plain PyTorch version on the card, at every one
-   of the 17 bucket widths, in float32 (<= 1e-4 * max|ref|: f32 FFT rounding
-   at N = 65536) and bfloat16 (<= 1e-2 * max|ref| against the plain version
-   in the same dtype: bf16 output rounding is about 4e-3): the fused Hyena
-   mixer at D = 256, B = 2, and its backward at D = 256, B = 3 (each of the
-   five gradients; a second call must be bitwise equal). Then, at the
-   flagship batch shapes (forward B = 2^17 // W, backward min(512, 2^17 //
-   W)), holds each again in bfloat16 and times it beside the least time the
-   card could take (bytes at 3.35 TB/s, f32 flops at 67 TFLOP/s).
-3. Drives `predict --random-init` (the CLI's own parser and code path) on
-   hyenadna-small-32k-seqlen at full width over ~300 seeded reads with the
-   benchmark's length mix, including reads in the 24576 and 32768 buckets.
-   Checks that the shards hold every read with finite logits and that the
-   mixer kernel ran n_layer times per batch. Re-runs the widest and the
-   fullest batch with the plain mixer on the card: in bfloat16 the argmax
-   agrees on >= 99.9% of the positions outside the bf16 tie band, in
-   float32 the logits agree within 2e-4 * max|logit|; a faulty and a
-   lower-precision mixer must fail those rules (see
-   check_against_plain_mixer). Reports reads/s and tokens/s after one batch
-   of warm-up.
-4. Train-step parity: one float32 forward and backward of the flagship with
-   the kernels and with the plain mixer swapped in; every gradient leaf
-   within TRAIN_GRAD_TOL of its max, and a backward with a convolution in
-   place of the correlation must fail that rule (phase_train_parity).
-5. Drives `train` (the CLI's parser and code path) on the flagship at full
-   width: one epoch over ~300 labelled reads with the benchmark's length
-   mix and reads in the 24576 and 32768 buckets, a val pass, test on the
-   best checkpoint; checks finite losses, the checkpoints and the launches
-   (forward n_layer per train and eval batch, backward n_layer per train
-   step), then `predict --checkpoint <best>` on a few reads. Then overfits
-   one full batch (loss below half its first value within 100 steps) and
-   times the train step: ms/step, tokens/s and peak memory.
+   of the 17 bucket widths:
+   - the fused Hyena mixer at D = 256, B = 2, and its backward at D = 256,
+     B = 3, in float32 (<= 1e-4 * max|ref|: f32 FFT rounding at N = 65536)
+     and bfloat16 (<= 1e-2 * max|ref| against the plain version in the same
+     dtype: bf16 output rounding is about 4e-3); each of the backward's five
+     gradients, and a second call must be bitwise equal. Then, at the
+     flagship batch shapes (forward B = 2^17 // W, backward min(512, 2^17 //
+     W)), each again in bfloat16, timed beside the least time the card could
+     take (bytes at 3.35 TB/s, f32 flops at 67 TFLOP/s).
+   - the three selective-scan kernels at Caduceus's widths (Din = 512,
+     N = 16), B = 2^17 // W, both directions, float32, and at the ragged
+     L = 1000: scan_fwd's y and scan_ckpt's states within 1e-5 of max|ref|,
+     scan_bwd's du, ddelta, dBp, dCp within 1e-5 and dA, dD (sums over B * L
+     terms) within 1e-4 of each one's max|ref|, bitwise repeatable; timed
+     beside their bounds (bytes, f32 flops, and exps at 16 a clock per SM).
+3. Drives `predict --random-init` (the CLI's own parser and code path) over
+   ~300 seeded reads with the benchmark's length mix, including reads in the
+   24576 and 32768 buckets, on hyenadna-small-32k-seqlen and on
+   caduceus-ph_seqlen-131k_d_model-256_n_layer-16, both at full width and
+   depth. Checks that the shards hold every read with finite logits and that
+   the kernel ran once a layer (Hyena) or twice a layer (Caduceus) per
+   batch. Re-runs the widest and the fullest batch with the plain mixer or
+   scan on the card: in bfloat16 the argmax agrees on >= 99.9% of the
+   positions outside the bf16 tie band, in float32 the logits agree within a
+   fixed limit; a faulty version must fail both rules (see
+   check_against_plain). Reports reads/s and tokens/s after one batch of
+   warm-up.
+4. Train-step parity, each model: one float32 forward and backward with the
+   kernels and with the plain version swapped in; every gradient leaf
+   within a limit of its max, and a faulty backward must fail it
+   (train_parity).
+5. Drives `train` (the CLI's parser and code path) on each model at full
+   width: one epoch over ~300 labelled reads with the benchmark's length mix
+   and reads in the 24576 and 32768 buckets, a val pass, test on the best
+   checkpoint; checks finite losses, the checkpoints and the launches per
+   batch, then `predict --checkpoint <best>` on a few reads. Caduceus trains
+   at 2^16 tokens per batch (its activations at 2^17 outgrow the card).
+   Then overfits one full Hyena batch (loss below half its first value
+   within 100 steps) and times the train step of each model: ms/step,
+   tokens/s and peak memory.
 6. With `--profile`, profiles one more pass of predict and three train
-   steps: device time by kernel and the device's busy share.
-7. Prints the kernel table as one JSON line (launches from the train run)
+   steps of each model: device time by kernel and the device's busy share.
+7. Prints the kernel table as one JSON line (launches from the train runs)
    and, last, the contract line.
 
 Any failed phase exits non-zero without the contract line. Without CUDA, or
@@ -51,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import shutil
@@ -63,6 +73,10 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TOKENS_PER_BATCH = 1 << 17
+# Caduceus keeps ~0.73 MB of activations per token for its backward (23.95 GB
+# at 2^15 tokens, PERF.md): 2^17 tokens would outgrow the card's 80 GB, 2^16
+# fits with room to spare.
+CADUCEUS_TRAIN_TOKENS = 1 << 16
 N_READS = 300
 
 
@@ -78,11 +92,11 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     import torch
 
-    fn()
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -91,6 +105,14 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
 
 
 def mixer_inputs(batch: int, d_model: int, seq_len: int, dtype, seed: int):
@@ -315,41 +337,219 @@ def phase_bwd_kernel() -> dict:
     }
 
 
+# -- selective-scan kernels (Caduceus) ----------------------------------------------
+
+SCAN_D_IN, SCAN_N = 512, 16  # Caduceus at d_model 256, expand 2, d_state 16
+SFU_PER_SM_CLOCK = 16  # exp2 a clock per SM (CUDA C++ Programming Guide, arithmetic throughput, cc 9.0)
+
+
+def sfu_rate() -> float:
+    """The card's exps per second: 16 a clock per SM at its maximum SM clock."""
+    import torch
+
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )  # fmt: skip
+    mhz = float(res.stdout.strip().splitlines()[0])
+    return SFU_PER_SM_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def scan_inputs(batch: int, seq_len: int, seed: int):
+    """(u, delta, A, Bp, Cp, D, dy) on the card, float32, shaped and strided
+    as the Caduceus mixer makes them: Bp and Cp are slices of one (B, L,
+    dt_rank + 2N) projection, delta a softplus, A = -(1..N) as initialised."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    u = r(batch, seq_len, SCAN_D_IN)
+    delta = F.softplus(r(batch, seq_len, SCAN_D_IN))
+    A = -torch.arange(1, SCAN_N + 1, device="cuda", dtype=torch.float32).expand(SCAN_D_IN, SCAN_N).contiguous()
+    proj = r(batch, seq_len, 16 + 2 * SCAN_N)
+    Bp, Cp = proj[..., 16 : 16 + SCAN_N], proj[..., 16 + SCAN_N :]
+    return u, delta, A, Bp, Cp, r(SCAN_D_IN), r(batch, seq_len, SCAN_D_IN)
+
+
+def within(got, ref, tol: float, where: str) -> tuple[float, float]:
+    """(max-abs error, of max|ref|); fails above tol * max|ref|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise SmokeFailure(f"{where}: {tuple(got.shape)}/{got.dtype} vs {tuple(ref.shape)}/{ref.dtype}")
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not math.isfinite(err) or err > tol * scale:
+        raise SmokeFailure(f"{where}: err {err:.3e} > {tol} * {scale:.3e}")
+    return err, err / scale
+
+
+SCAN_GRADS = (("du", 1e-5), ("ddelta", 1e-5), ("dA", 1e-4), ("dBp", 1e-5), ("dCp", 1e-5), ("dD", 1e-4))
+
+
+def compare_scan(args, reverse: bool, where: str) -> dict[str, tuple[float, float]]:
+    """The three scan kernels against their plain versions on the same
+    inputs: {kernel: (max-abs error, worst error of max|ref|)}; scan_bwd's
+    second call must be bitwise equal to its first."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, dy = args
+    out = {}
+    y = scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+    torch.cuda.synchronize()
+    out["scan_fwd"] = within(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse), 1e-5, f"{where} y")
+    ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+    torch.cuda.synchronize()
+    out["scan_ckpt"] = within(ckpt, scan.scan_ckpt_reference(u, delta, A, Bp, reverse), 1e-5, f"{where} ckpt")
+    got = scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse)
+    again = scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse)
+    torch.cuda.synchronize()
+    ref = scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)
+    worst = (0.0, 0.0)
+    for (name, tol), g, a, r in zip(SCAN_GRADS, got, again, ref):
+        if not torch.equal(g, a):
+            raise SmokeFailure(f"{where} {name}: two calls on the same inputs differ")
+        err, rel = within(g, r, tol, f"{where} {name}")
+        worst = (max(worst[0], err), max(worst[1], rel))
+    out["scan_bwd"] = worst
+    return out
+
+
+def scan_bound(kind: str, batch: int, seq_len: int, exps_per_s: float) -> tuple[float, float, str]:
+    """(bytes ms, operations ms, what bounds the operations) of one call:
+    each input read once and each output written once; f32 flops on the CUDA
+    cores and, at least, one exp per (token, channel, state) on the
+    special-function units."""
+    tok, d, n = batch * seq_len, SCAN_D_IN, SCAN_N
+    ckpt = batch * -(-seq_len // 32) * n * d
+    if kind == "scan_fwd":  # u, delta, Bp, Cp, A, D in; y out
+        nbytes, flops = 4 * (3 * tok * d + 2 * tok * n + d * n + d), 6 * tok * d * n
+    elif kind == "scan_ckpt":  # u, delta, Bp, A in; ckpt out
+        nbytes, flops = 4 * (2 * tok * d + tok * n + d * n + ckpt), 4 * tok * d * n
+    else:  # u, delta, dy, Bp, Cp, ckpt, A, D in; du, ddelta, dBp, dCp, dA, dD out
+        nbytes, flops = 4 * (5 * tok * d + 4 * tok * n + ckpt + 2 * (d * n + d)), 20 * tok * d * n
+    flops_ms, exps_ms = flops / F32_FLOPS_PER_S * 1e3, tok * d * n / exps_per_s * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, max(flops_ms, exps_ms), "exps" if exps_ms >= flops_ms else "f32 flops"
+
+
+def phase_scan_kernels() -> list[dict]:
+    """The scan kernels against their plain versions at every ladder width
+    (B = 2^17 // W) in both directions and at the ragged L = 1000; timed in
+    both directions, the plain versions in the forward direction."""
+    import torch
+
+    from deepchopper_tpu_torch.data.bucketing import default_buckets
+    from deepchopper_tpu_torch.ops import scan
+
+    exps_per_s = sfu_rate()
+    print(f"selective scan at Din={SCAN_D_IN}, N={SCAN_N}, B = 2^17 // W, f32 (exps at {exps_per_s:.3e}/s); "
+          "err = worst max-abs error (of max|ref|)")  # fmt: skip
+    names = ("scan_fwd", "scan_ckpt", "scan_bwd")
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0} for k in names}
+    widths = default_buckets(32768)
+    for seq_len in [*widths, 1000]:
+        batch = TOKENS_PER_BATCH // seq_len
+        args = scan_inputs(batch, seq_len, seed=seq_len)
+        u, delta, A, Bp, Cp, D, dy = args
+        for reverse in (False, True):
+            where = f"W={seq_len:6d} B={batch:3d} {'rev' if reverse else 'fwd'}"
+            errs = compare_scan(args, reverse, where)
+            for k in names:
+                rows[k]["err"] = max(rows[k]["err"], errs[k][0])
+            line = where + " " + " ".join(f"{k} {e:.1e} ({r:.1e})" for k, (e, r) in errs.items())
+            if seq_len not in widths:
+                print(line + "  (off the ladder: checked, not timed)")
+                continue
+            ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+            calls = {
+                "scan_fwd": (lambda: scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse),
+                             lambda: scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)),
+                "scan_ckpt": (lambda: scan.scan_ckpt_cuda(u, delta, A, Bp, reverse),
+                              lambda: scan.scan_ckpt_reference(u, delta, A, Bp, reverse)),
+                "scan_bwd": (lambda: scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse),
+                             lambda: scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)),
+            }  # fmt: skip
+            for k, (kernel, plain) in calls.items():
+                ms = time_ms(kernel)
+                line += f" | {k} {ms:.3f} ms"
+                if reverse:
+                    continue
+                plain_ms = time_ms(plain, reps=2, warmup=0)
+                bytes_ms, ops_ms, ops_by = scan_bound(k, batch, seq_len, exps_per_s)
+                bound = max(bytes_ms, ops_ms)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                               ("bound_ms", bound)):  # fmt: skip
+                    rows[k][key] += v
+                line += (f" plain {plain_ms:.3f} bound {bound:.3f} ({'bytes' if bytes_ms >= ops_ms else ops_by}; "
+                         f"bytes {bytes_ms:.3f}, ops {ops_ms:.3f}) x{ms / bound:.1f}")  # fmt: skip
+            print(line)
+            del ckpt
+        del args, u, delta, A, Bp, Cp, D, dy
+    out = []
+    for k, row in rows.items():
+        print(f"  {k} ladder total (forward direction): kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.3f} ms")  # fmt: skip
+        source = "scan_fwd.cu" if k == "scan_fwd" else "scan_bwd.cu"
+        line = {"scan_fwd": 46, "scan_ckpt": 179, "scan_bwd": 200}[k]
+        out.append({
+            "name": k, "route": "cuda", "source": f"deepchopper_tpu_torch/csrc/{source}",
+            "replaces": f"deepchopper_tpu/ops/pallas_scan.py:{line}", "launches": None, "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations", "library_ms": None,
+        })  # fmt: skip
+    return out
+
+
+# -- predict ---------------------------------------------------------------------------
+
+HYENA = "hyenadna-small-32k-seqlen"
+CADUCEUS = "caduceus-ph_seqlen-131k_d_model-256_n_layer-16"
+
+
 def _shard_read_names(ids) -> list[str]:
     return [bytes(int(c) for c in row[2 : 2 + row[0]]).decode("ascii") for row in ids]
 
 
-def phase_predict(card: str) -> tuple[int, Path]:
-    import numpy as np
-    import torch
-
-    from deepchopper_tpu_torch import cli
+def bench_reads(work: Path) -> Path:
+    """~300 reads with the benchmark's length mix, one forced into each of
+    the 24576 and 32768 buckets."""
     from deepchopper_tpu_torch.data.synth import read_lengths, synth_fastq
-    from deepchopper_tpu_torch.ops import mixer
 
-    work = REPO / "build" / "chip_smoke"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     lengths = read_lengths(N_READS, seed=0)
-    # The 24576 and 32768 buckets run the kernel's global-scratch branch.
     if not ((lengths >= 16400) & (lengths <= 24000)).any():
         lengths[0] = 20000
     if not ((lengths >= 24600) & (lengths <= 32000)).any():
         lengths[1] = 30000
-    fq = synth_fastq(work / "reads.fq", lengths, seed=0)
-    parser = cli.build_parser()
+    return synth_fastq(work / "reads.fq", lengths, seed=0)
 
-    cli.predict(parser.parse_args(["predict", str(fq), "--random-init", "-o", str(work / "warm"), "--limit-batches", "1"]))
+
+def phase_predict(card: str, model: str, fq: Path, counts: dict, kernel: str, per_layer: int) -> int:
+    """`predict --random-init` through the CLI on `model` over the reads of
+    `fq`, after a warm-up batch; the shards must hold every read with finite
+    logits in the 24576 and 32768 buckets, and `kernel` must have launched
+    per_layer x n_layer times per batch. Then the plain-version checks."""
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.models.registry import build_model
+
+    work = fq.parent / model
+    parser = cli.build_parser()
+    base = ["predict", str(fq), "--model", model, "--random-init"]
+    cli.predict(parser.parse_args([*base, "-o", str(work / "warm"), "--limit-batches", "1"]))
     torch.cuda.synchronize()
 
     out = work / "out"
-    args = parser.parse_args(["predict", str(fq), "--random-init", "-o", str(out)])
-    mixer.reset_launch_counts()
+    args = parser.parse_args([*base, "-o", str(out)])
+    for k in counts:
+        counts[k] = 0
     stats = cli.predict(args)
     torch.cuda.synchronize()
-    launches = mixer.launch_counts["mixer_fwd"]
+    launches = counts[kernel]
 
-    n_layer = 4
+    n_layer = build_model(model).backbone_config.n_layer
     shards = sorted(out.glob("0/*.npz"))
     names: list[str] = []
     widths = set()
@@ -362,27 +562,33 @@ def phase_predict(card: str) -> tuple[int, Path]:
         widths.add(s["seq"].shape[1])
     want = {f"bench_read_{i}" for i in range(N_READS)}
     if len(names) != N_READS or set(names) != want:
-        raise SmokeFailure(f"shards hold {len(names)} reads ({len(set(names) & want)} of {N_READS} expected)")
+        raise SmokeFailure(f"{model}: shards hold {len(names)} reads ({len(set(names) & want)} of {N_READS} expected)")
     if not {24576, 32768} <= widths:
-        raise SmokeFailure(f"large buckets missing from the run: widths {sorted(widths)}")
-    if launches <= 0 or launches != n_layer * stats.batches or stats.batches != len(shards):
-        raise SmokeFailure(f"mixer launches {launches} != {n_layer} x {stats.batches} batches ({len(shards)} shards)")
-    reads_s, tokens_s = stats.reads / stats.elapsed_s, stats.tokens / stats.elapsed_s
+        raise SmokeFailure(f"{model}: large buckets missing from the run: widths {sorted(widths)}")
+    per_batch = per_layer * n_layer
+    if launches <= 0 or launches != per_batch * stats.batches or stats.batches != len(shards):
+        raise SmokeFailure(f"{model}: {kernel} launches {launches} != {per_batch} x {stats.batches} batches "
+                           f"({len(shards)} shards)")  # fmt: skip
     print(
-        f"predict: {stats.reads} reads, {stats.tokens} tokens, {stats.batches} batches, widths {sorted(widths)}; "
-        f"mixer_fwd launches {launches} = {n_layer} layers x {stats.batches} batches"
+        f"predict {model}: {stats.reads} reads, {stats.tokens} tokens, {stats.batches} batches, widths "
+        f"{sorted(widths)}; {kernel} launches {launches} = {per_batch} x {stats.batches} batches"
     )
     print(
-        f"predict throughput on {card}: {reads_s:.1f} reads/s, {tokens_s:.0f} tokens/s "
-        f"({stats.elapsed_s:.3f} s, after one warm-up batch)"
+        f"predict {model} throughput on {card}: {stats.reads / stats.elapsed_s:.1f} reads/s, "
+        f"{stats.tokens / stats.elapsed_s:.0f} tokens/s ({stats.elapsed_s:.3f} s, after one warm-up batch)"
     )
-    check_against_plain_mixer(fq, out / "0", len(shards))
-    return launches, fq
+    return launches
 
 
-F32_LOGIT_TOL = 2e-4  # f32 logits, kernel vs plain mixer, of max|logit|
-ARGMAX_AGREEMENT = 0.999  # bf16 argmax outside the tie band, kernel vs plain mixer
-TIE_BAND = 2.0**-7  # of max|logit|: two bf16 ulps at the logit scale
+ARGMAX_AGREEMENT = 0.999  # bf16 argmax outside the tie band, kernel vs plain version
+# bf16 tie bands, of max|logit|. Hyena: two bf16 ulps at the logit scale (the
+# head's logits are bf16 products). Caduceus: its 16 bidirectional layers round
+# an f32 stream to bf16 at three projections each, so two correct plain scans
+# (default chunk and chunk 7) differ by up to 4.9% of max|logit| (0.172 at
+# 3.5) and agree on only 99.950% of the positions beyond 2^-7 (PERF.md):
+# a margin above twice that difference, 2^-3, cannot flip under it.
+HYENA_TIE_BAND = 2.0**-7
+CADUCEUS_TIE_BAND = 2.0**-3
 
 
 def mixer_at_4l(proj, k_short, b_short, k_long, bias):
@@ -414,37 +620,53 @@ def mixer_bf16_io(proj, k_short, b_short, k_long, bias):
     return mixer.mixer_reference(proj.to(torch.bfloat16), k_short, b_short, k_long, bias).to(proj.dtype)
 
 
-@contextlib.contextmanager
-def swapped_mixer(fn):
-    """Route every HyenaOperator through fn instead of the kernel."""
-    from deepchopper_tpu_torch.models import hyena
+def scan_reverse_run_forward(u, delta, A, Bp, Cp, D, reverse=False):
+    """A faulty scan: the reverse direction walks left to right."""
+    from deepchopper_tpu_torch.ops import scan
 
-    kernel_mixer = hyena.mixer_fft_conv_bm
-    hyena.mixer_fft_conv_bm = fn
+    return scan.selective_scan_reference(u, delta, A, Bp, Cp, D, False)
+
+
+@contextlib.contextmanager
+def swapped(module, attr: str, fn):
+    """Route every call the model makes to module.attr through fn."""
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, fn)
     try:
         yield
     finally:
-        hyena.mixer_fft_conv_bm = kernel_mixer
+        setattr(module, attr, kernel_fn)
 
 
-def check_against_plain_mixer(fq: Path, shard_dir: Path, n_shards: int) -> None:
+def swapped_mixer(fn):
+    from deepchopper_tpu_torch.models import hyena
+
+    return swapped(hyena, "mixer_fft_conv_bm", fn)
+
+
+def swapped_scan(fn):
+    from deepchopper_tpu_torch.models import caduceus
+
+    return swapped(caduceus, "selective_scan", fn)
+
+
+def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain, second: tuple, bf16_control: tuple,
+                        f32_control: tuple, f32_tol: float, tie_band: float) -> None:  # fmt: skip
     """Re-run the widest and the fullest batch of the main path with the
-    plain mixer on the card, through the engine's own step, and hold the
-    kernel's logits to it. Each rule is also run on a control that must fail
-    it, so a rule that cannot see a fault fails the run.
+    plain version of the model's kernel on the card (`swap(fn)` routes the
+    model through fn), through the engine's own step, and hold the kernel's
+    logits to it. Each rule is also run on a control that must fail it, so
+    a rule that cannot see a fault fails the run; `second` = (name, fn), a
+    second correct version, is printed beside the kernel.
 
-    bfloat16, the flagship's dtype, against the shards the main path wrote:
+    bfloat16, the models' dtype, against the shards the main path wrote:
     argmax agrees on >= 99.9% of the valid positions whose logit margin
-    exceeds 2^-7 * max|logit|. That is two bf16 ulps at the logit scale: the
-    head's logits are bf16 products, so a narrower margin is a tie at this
-    precision and flips under any change of rounding. The agreement over all
-    valid positions is printed beside it, for the kernel and for the plain
-    mixer with its FFT at 4L (two correct mixers). Control: the short conv's
-    taps reversed.
+    exceeds tie_band * max|logit|: a narrower margin is a tie at this
+    precision and flips under any change of rounding (the bands and their
+    reasons are at HYENA_TIE_BAND and CADUCEUS_TIE_BAND).
 
     float32, the same weights and batches at compute_dtype float32: logits
-    within 2e-4 * max|logit| of the plain run. Printed beside it: the plain
-    mixer at 4L. Control: the plain mixer with bf16 input and output.
+    within f32_tol * max|logit| of the plain run.
     """
     import dataclasses
 
@@ -453,12 +675,10 @@ def check_against_plain_mixer(fq: Path, shard_dir: Path, n_shards: int) -> None:
 
     from deepchopper_tpu_torch.data.fastq_module import iter_batches
     from deepchopper_tpu_torch.infer.engine import PredictEngine
-    from deepchopper_tpu_torch.models.classifier import HyenaTokenClassifier
     from deepchopper_tpu_torch.models.registry import DeepChopper
-    from deepchopper_tpu_torch.ops import mixer
 
-    model = DeepChopper.new("rna002", seed=0, device="cuda")
-    model32 = HyenaTokenClassifier(
+    model = DeepChopper.new(model_name, seed=0, device="cuda")
+    model32 = type(model)(
         dataclasses.replace(model.backbone_config, compute_dtype="float32"),
         dataclasses.replace(model.head_config, compute_dtype="float32"),
     )
@@ -467,12 +687,13 @@ def check_against_plain_mixer(fq: Path, shard_dir: Path, n_shards: int) -> None:
 
     # The CLI's batching is deterministic: batch i was written as shard 0_i.
     batches = list(iter_batches(fq))
+    n_shards = len(list(shard_dir.glob("*.npz")))
     if len(batches) != n_shards:
         raise SmokeFailure(f"re-batching gave {len(batches)} batches for {n_shards} shards")
     picks = sorted({max(range(n_shards), key=lambda i: batches[i].input_ids.shape[k]) for k in (0, 1)})
-    bf16_runs = ("kernel", "plain at 4L", "control: taps reversed")
+    bf16_runs = ("kernel", second[0], bf16_control[0])
     agree = {name: np.zeros(4, dtype=np.int64) for name in bf16_runs}  # valid, agree, decided, decided-agree
-    f32_rel = {"kernel": 0.0, "plain at 4L": 0.0, "control: bf16 I/O": 0.0}
+    f32_rel = {"kernel": 0.0, second[0]: 0.0, f32_control[0]: 0.0}
     for i in picks:
         batch, shard = batches[i], np.load(shard_dir / f"0_{i}.npz")
         if not np.array_equal(shard["seq"], batch.input_ids):
@@ -482,34 +703,34 @@ def check_against_plain_mixer(fq: Path, shard_dir: Path, n_shards: int) -> None:
         valid = batch.labels != -100
 
         def run(eng, fn):
-            with swapped_mixer(fn):
+            with swap(fn):
                 return eng.step(ids, quals).cpu().numpy()
 
-        plain = run(engine, mixer.mixer_reference)
-        scale = np.abs(plain).max()
-        decided = valid & (np.abs(plain[..., 1] - plain[..., 0]) > TIE_BAND * scale)
-        bf16 = {"kernel": shard["prediction"], "plain at 4L": run(engine, mixer_at_4l),
-                "control: taps reversed": run(engine, mixer_taps_reversed)}  # fmt: skip
+        ref = run(engine, plain)
+        scale = np.abs(ref).max()
+        decided = valid & (np.abs(ref[..., 1] - ref[..., 0]) > tie_band * scale)
+        bf16 = {"kernel": shard["prediction"], second[0]: run(engine, second[1]),
+                bf16_control[0]: run(engine, bf16_control[1])}  # fmt: skip
         for name, logits in bf16.items():
-            same = logits.argmax(-1) == plain.argmax(-1)
+            same = logits.argmax(-1) == ref.argmax(-1)
             counts = np.array([valid.sum(), same[valid].sum(), decided.sum(), same[decided].sum()])
             agree[name] += counts
             print(
-                f"  bf16 batch {i} {batch.input_ids.shape}, {name} vs plain mixer: logits max-abs diff "
-                f"{np.abs(logits - plain).max():.3e} (max|logit| {scale:.3e}); argmax agrees on "
+                f"  bf16 batch {i} {batch.input_ids.shape}, {name} vs plain: logits max-abs diff "
+                f"{np.abs(logits - ref).max():.3e} (max|logit| {scale:.3e}); argmax agrees on "
                 f"{counts[1]}/{counts[0]} valid positions, {counts[3]}/{counts[2]} beyond the tie band"
             )
 
-        plain32 = run(engine32, mixer.mixer_reference)
-        scale32 = np.abs(plain32).max()
-        f32 = {"kernel": engine32.step(ids, quals).cpu().numpy(), "plain at 4L": run(engine32, mixer_at_4l),
-               "control: bf16 I/O": run(engine32, mixer_bf16_io)}  # fmt: skip
+        ref32 = run(engine32, plain)
+        scale32 = np.abs(ref32).max()
+        f32 = {"kernel": engine32.step(ids, quals).cpu().numpy(), second[0]: run(engine32, second[1]),
+               f32_control[0]: run(engine32, f32_control[1])}  # fmt: skip
         for name, logits in f32.items():
-            err = np.abs(logits - plain32).max()
+            err = np.abs(logits - ref32).max()
             f32_rel[name] = max(f32_rel[name], float(err / scale32))
-            flips = int((logits.argmax(-1) != plain32.argmax(-1))[valid].sum())
+            flips = int((logits.argmax(-1) != ref32.argmax(-1))[valid].sum())
             print(
-                f"  f32  batch {i} {batch.input_ids.shape}, {name} vs plain mixer: logits max-abs diff {err:.3e} "
+                f"  f32  batch {i} {batch.input_ids.shape}, {name} vs plain: logits max-abs diff {err:.3e} "
                 f"({err / scale32:.3e} of max|logit| {scale32:.3e}); argmax differs at {flips} valid positions"
             )
 
@@ -517,24 +738,61 @@ def check_against_plain_mixer(fq: Path, shard_dir: Path, n_shards: int) -> None:
     for name, (share, decided_share) in shares.items():
         print(f"  bf16 {name}: argmax agrees on {share:.5f} of valid positions, {decided_share:.5f} beyond the tie band")
     f32_line = ", ".join(f"{name} {rel:.3e}" for name, rel in f32_rel.items())
-    print(f"  f32 logits vs plain mixer, of max|logit|: {f32_line} (limit {F32_LOGIT_TOL})")
+    print(f"  f32 logits vs plain, of max|logit|: {f32_line} (limit {f32_tol})")
     if shares["kernel"][1] < ARGMAX_AGREEMENT:
-        raise SmokeFailure(f"bf16 argmax agrees with the plain mixer on {shares['kernel'][1]:.5f} < {ARGMAX_AGREEMENT}")
-    if shares["control: taps reversed"][1] >= ARGMAX_AGREEMENT:
-        raise SmokeFailure("bf16 argmax rule passes a mixer with its taps reversed")
-    if not f32_rel["kernel"] <= F32_LOGIT_TOL:
-        raise SmokeFailure(f"f32 logits differ from the plain mixer's by {f32_rel['kernel']:.3e} > {F32_LOGIT_TOL}")
-    if f32_rel["control: bf16 I/O"] <= F32_LOGIT_TOL:
-        raise SmokeFailure("f32 logit limit passes a mixer with bf16 input and output")
+        raise SmokeFailure(f"bf16 argmax agrees with the plain version on {shares['kernel'][1]:.5f} < {ARGMAX_AGREEMENT}")
+    if shares[bf16_control[0]][1] >= ARGMAX_AGREEMENT:
+        raise SmokeFailure(f"bf16 argmax rule passes the control ({bf16_control[0]})")
+    if not f32_rel["kernel"] <= f32_tol:
+        raise SmokeFailure(f"f32 logits differ from the plain version's by {f32_rel['kernel']:.3e} > {f32_tol}")
+    if f32_rel[f32_control[0]] <= f32_tol:
+        raise SmokeFailure(f"f32 logit limit passes the control ({f32_control[0]})")
 
 
-# f32 train step, kernels vs plain mixer: each leaf's max error, of its max|grad|.
+# f32 logits, Hyena kernel vs plain mixer, of max|logit| (measured: kernel 1.045e-4,
+# plain at 4L 1.342e-4, bf16 I/O control 1.340e-2).
+HYENA_F32_LOGIT_TOL = 2e-4
+# f32 logits, Caduceus kernels vs plain scan, of max|logit|: f32 rounding of the
+# scan amplified through 16 bidirectional layers; two correct plain scans
+# (default chunk and chunk 7) differ by 1.09e-5, the reverse-run-forward
+# control by 0.90 (PERF.md).
+CADUCEUS_F32_LOGIT_TOL = 1e-4
+
+
+def check_hyena_against_plain(fq: Path, shard_dir: Path) -> None:
+    """Controls: the short conv's taps reversed (bf16 rule); the plain mixer
+    with bf16 input and output (f32 limit). Second correct mixer: the plain
+    one with its FFT at 4L."""
+    from deepchopper_tpu_torch.ops import mixer
+
+    check_against_plain(fq, shard_dir, "rna002", swapped_mixer, mixer.mixer_reference, ("plain at 4L", mixer_at_4l),
+                        ("control: taps reversed", mixer_taps_reversed), ("control: bf16 I/O", mixer_bf16_io),
+                        HYENA_F32_LOGIT_TOL, HYENA_TIE_BAND)  # fmt: skip
+
+
+def check_caduceus_against_plain(fq: Path, shard_dir: Path) -> None:
+    """Control for both rules: the reverse direction run forward. Second
+    correct scan: the plain one at 7 steps per chunk."""
+    from deepchopper_tpu_torch.ops import scan
+
+    control = ("control: reverse run forward", scan_reverse_run_forward)
+    second = ("plain at chunk 7", functools.partial(scan.selective_scan_reference, chunk=7))
+    check_against_plain(fq, shard_dir, CADUCEUS, swapped_scan, scan.selective_scan_reference, second, control, control,
+                        CADUCEUS_F32_LOGIT_TOL, CADUCEUS_TIE_BAND)  # fmt: skip
+
+
+# -- train ----------------------------------------------------------------------------
+
+# f32 train step, Hyena kernels vs plain mixer: each leaf's max error, of its max|grad|.
 # On the CPU two correct plain mixers (FFT at 2L and at 4L) differ by up to 1.0e-2
 # of a leaf's max (median 5e-4 to 7e-4) at (16, 1024) and (1, 8192): ReLU masks
 # of the 1024-wide head flip where a pre-activation sits within rounding of 0,
 # and the filter-bias gradients are sums that cancel. The convolution control
 # is off by 1.6 to 47.
-TRAIN_GRAD_TOL = 3e-2
+HYENA_GRAD_TOL = 3e-2
+# f32 train step, Caduceus kernels vs plain scan: the same rule, the same head
+# and its ReLU ties; set from the plain scan at two chunk sizes (PERF.md).
+CADUCEUS_GRAD_TOL = 3e-2
 
 
 def plain_mixer(bwd):
@@ -580,6 +838,63 @@ def mixer_bwd_convolution(proj, dy, k_short, b_short, k_long, bias):
     return mixer._grads_from_cotangents(proj, dgates, dkhat, k_short, b_short, k_long, bias, n)
 
 
+def plain_scan(bwd, chunk: int | None = None):
+    """A differentiable scan that runs the plain forward and the given plain
+    backward (both at `chunk`), to swap into every MambaMixer."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+
+    class PlainScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, u, delta, A, Bp, Cp, D, reverse):
+            ctx.save_for_backward(u, delta, A, Bp, Cp, D)
+            ctx.reverse = reverse
+            return scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse, chunk)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return (*bwd(*ctx.saved_tensors, dy, ctx.reverse, chunk), None)
+
+    def fn(u, delta, A, Bp, Cp, D, reverse=False):
+        return PlainScan.apply(u, delta, A, Bp, Cp, D, reverse)
+
+    return fn
+
+
+def scan_bwd_carry_zeroed(u, delta, A, Bp, Cp, D, dy, reverse=False, chunk=None):
+    """A faulty backward: `scan_bwd_reference` with the cotangent carried from
+    one chunk into the one before it dropped (each chunk's exit state gets a
+    zero cotangent)."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+
+    if reverse:
+        u, delta, Bp, Cp, dy = scan._flip_time(u, delta, Bp, Cp, dy)
+    batch, seq_len, d_in = u.shape
+    chunk = scan._plain_chunk(batch, chunk)
+    du, ddelta, dbp, dcp = (torch.empty_like(t) for t in (u, delta, Bp, Cp))
+    d_a, d_d = torch.zeros_like(A), torch.zeros_like(D)
+    h = u.new_zeros(batch, d_in, A.shape[1])
+    for lo in range(0, seq_len, chunk):
+        hi = min(seq_len, lo + chunk)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (u[:, lo:hi], delta[:, lo:hi], A, Bp[:, lo:hi],
+                                                               Cp[:, lo:hi], D)]  # fmt: skip
+            uc, dc, ac, bc, cc, dsk = leaves
+            hs = scan._chunk_states(uc, dc, ac, bc, h)
+            y = torch.einsum("bldn,bln->bld", hs, cc) + uc * dsk
+            g = torch.autograd.grad(y, leaves, dy[:, lo:hi])
+        du[:, lo:hi], ddelta[:, lo:hi], dbp[:, lo:hi], dcp[:, lo:hi] = g[0], g[1], g[3], g[4]
+        d_a += g[2]
+        d_d += g[5]
+        h = hs[:, -1].detach()
+    if reverse:
+        du, ddelta, dbp, dcp = scan._flip_time(du, ddelta, dbp, dcp)
+    return du, ddelta, d_a, dbp, dcp, d_d
+
+
 def training_batch(batch: int, width: int, seed: int) -> dict:
     """A right-padded labelled batch on the card: random bases, 0/1 labels,
     normalized quals; row lengths between width/2 and width."""
@@ -596,48 +911,46 @@ def training_batch(batch: int, width: int, seed: int) -> dict:
     return {k: torch.from_numpy(v).cuda() for k, v in (("input_ids", ids), ("input_quals", quals), ("labels", labels))}
 
 
-def phase_train_parity() -> None:
-    """One forward and backward of the flagship at compute_dtype float32, same
-    random-init weights, on a (61, 1024) and a (1, 32768) batch: with the
-    kernels, and with the plain mixer (mixer_reference + mixer_bwd_reference)
-    swapped in. Every parameter's gradient within TRAIN_GRAD_TOL of that
-    leaf's max|grad| of the plain run. Control that must fail the rule: the
-    plain backward with K̂ in place of conj(K̂). Printed beside them: autograd
-    of the plain mixer at 4L, a second correct mixer."""
+def train_parity(model_name: str, swap, counts: dict, kernel_launches: dict, runs: dict, control: str,
+                 shapes: tuple, tol: float) -> None:  # fmt: skip
+    """One forward and backward of `model_name` at compute_dtype float32,
+    same random-init weights, on each batch shape: with the kernels (which
+    must launch `kernel_launches`), and with each of `runs` (name -> plain
+    function, swapped in by `swap`; "plain" is the yardstick). Every
+    parameter's gradient within `tol` of that leaf's max|grad| of the plain
+    run; the run named `control` must fail that rule."""
     import dataclasses
 
     import torch
 
-    from deepchopper_tpu_torch.models.classifier import HyenaTokenClassifier
     from deepchopper_tpu_torch.models.registry import DeepChopper
-    from deepchopper_tpu_torch.ops import mixer
     from deepchopper_tpu_torch.train.loss import continuous_interval_loss
 
-    base = DeepChopper.new("hyenadna-small-32k-seqlen", seed=0, device="cuda")
-    model = HyenaTokenClassifier(
+    base = DeepChopper.new(model_name, seed=0, device="cuda")
+    model = type(base)(
         dataclasses.replace(base.backbone_config, compute_dtype="float32"),
         dataclasses.replace(base.head_config, compute_dtype="float32"),
     ).cuda()
     model.load_state_dict(base.state_dict())
     model.train()
-    n_layer = model.backbone_config.n_layer
-    runs = {"kernel": None, "plain": plain_mixer(mixer.mixer_bwd_reference), "plain at 4L (autograd)": mixer_at_4l,
-            "control: convolution backward": plain_mixer(mixer_bwd_convolution)}  # fmt: skip
+    del base
+    runs = {"kernel": None, **runs}
     worst = {name: 0.0 for name in runs if name != "plain"}
-    for batch_shape, seed in (((61, 1024), 1), ((1, 32768), 2)):
+    for batch_shape, seed in shapes:
         batch = training_batch(*batch_shape, seed=seed)
         grads = {}
         for name, fn in runs.items():
             model.zero_grad(set_to_none=True)
-            mixer.reset_launch_counts()
-            with swapped_mixer(fn) if fn is not None else contextlib.nullcontext():
+            for k in counts:
+                counts[k] = 0
+            with swap(fn) if fn is not None else contextlib.nullcontext():
                 loss = continuous_interval_loss(model(batch["input_ids"], batch["input_quals"]), batch["labels"])
                 loss.backward()
             torch.cuda.synchronize()
-            if fn is None and mixer.launch_counts != {"mixer_fwd": n_layer, "mixer_bwd": n_layer}:
-                raise SmokeFailure(f"train step {batch_shape}: kernel launches {mixer.launch_counts}")
-            if fn is not None and any(mixer.launch_counts.values()):
-                raise SmokeFailure(f"train step {batch_shape}: the plain run launched {mixer.launch_counts}")
+            if fn is None and counts != kernel_launches:
+                raise SmokeFailure(f"train step {batch_shape}: kernel launches {counts} != {kernel_launches}")
+            if fn is not None and any(counts.values()):
+                raise SmokeFailure(f"train step {batch_shape}: the plain run {name} launched {counts}")
             grads[name] = ({k: p.grad.detach().clone() for k, p in model.named_parameters()}, loss.item())
         plain, plain_loss = grads["plain"]
         for name in worst:
@@ -646,23 +959,46 @@ def phase_train_parity() -> None:
             leaf = max(rel, key=rel.get)
             worst[name] = max(worst[name], rel[leaf])
             print(
-                f"  f32 train step {batch_shape}, {name} vs plain mixer: loss {got_loss:.7f} vs {plain_loss:.7f}; "
-                f"worst gradient leaf {leaf} at {rel[leaf]:.3e} of its max|grad| ({len(rel)} leaves)"
+                f"  f32 train step {model_name} {batch_shape}, {name} vs plain: loss {got_loss:.7f} vs "
+                f"{plain_loss:.7f}; worst gradient leaf {leaf} at {rel[leaf]:.3e} of its max|grad| ({len(rel)} leaves)"
             )
+        del grads
     print(f"  train-step gradients vs plain, worst leaf: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f" (limit {TRAIN_GRAD_TOL})")  # fmt: skip
-    if not worst["kernel"] <= TRAIN_GRAD_TOL:
-        raise SmokeFailure(f"train-step gradients differ from the plain mixer's by {worst['kernel']:.3e}")
-    if worst["control: convolution backward"] <= TRAIN_GRAD_TOL:
-        raise SmokeFailure("train-step gradient rule passes a backward with a convolution for the correlation")
+          + f" (limit {tol})")  # fmt: skip
+    if not worst["kernel"] <= tol:
+        raise SmokeFailure(f"{model_name} train-step gradients differ from the plain version's by {worst['kernel']:.3e}")
+    if worst[control] <= tol:
+        raise SmokeFailure(f"{model_name} train-step gradient rule passes the {control}")
 
 
-def phase_train(card: str) -> dict[str, int]:
-    """`train` through the CLI's parser and code path on the flagship at full
+def phase_train_parity() -> None:
+    """Hyena on a (61, 1024) and a (1, 32768) batch: kernels vs the plain
+    mixer (mixer_reference + mixer_bwd_reference); printed beside them,
+    autograd of the plain mixer at 4L; control: the plain backward with K̂ in
+    place of conj(K̂). Caduceus on a (16, 1024) and a (1, 8192) batch:
+    kernels vs the plain scan (selective_scan_reference + scan_bwd_reference);
+    beside them the plain scan at 7 steps per chunk; control: the plain
+    backward with the cotangent carry between its 32-step chunks (the
+    kernel's tiles) dropped."""
+    from deepchopper_tpu_torch.ops import mixer, scan
+
+    train_parity(HYENA, swapped_mixer, mixer.launch_counts, {"mixer_fwd": 4, "mixer_bwd": 4},
+                 {"plain": plain_mixer(mixer.mixer_bwd_reference), "plain at 4L (autograd)": mixer_at_4l,
+                  "control: convolution backward": plain_mixer(mixer_bwd_convolution)},
+                 "control: convolution backward", (((61, 1024), 1), ((1, 32768), 2)), HYENA_GRAD_TOL)  # fmt: skip
+    train_parity(CADUCEUS, swapped_scan, scan.launch_counts, {"scan_fwd": 32, "scan_ckpt": 32, "scan_bwd": 32},
+                 {"plain": plain_scan(scan.scan_bwd_reference), "plain at chunk 7": plain_scan(scan.scan_bwd_reference, 7),
+                  "control: carry dropped": plain_scan(scan_bwd_carry_zeroed, scan.CKPT_CHUNK)},
+                 "control: carry dropped", (((16, 1024), 1), ((1, 8192), 2)), CADUCEUS_GRAD_TOL)  # fmt: skip
+
+
+def phase_train(card: str, model: str, counts: dict, per_batch: dict, extra: tuple = ()) -> dict[str, int]:
+    """`train` through the CLI's parser and code path on `model` at full
     width (random init, seed 0), one epoch over ~300 labelled reads with the
     benchmark's length mix, two of them forced into the 24576 and 32768
     buckets of the training split; one val pass; test on the best
-    checkpoint. Then `predict --checkpoint <best>` on a few reads. Returns the
+    checkpoint. per_batch = {kernel: (launches per train batch, per eval
+    batch)}. Then `predict --checkpoint <best>` on a few reads. Returns the
     kernels' launches in the train run."""
     import csv
     import dataclasses
@@ -673,17 +1009,16 @@ def phase_train(card: str) -> dict[str, int]:
     from deepchopper_tpu_torch import cli
     from deepchopper_tpu_torch.data.parquet_module import DataModule, ratio_split
     from deepchopper_tpu_torch.data.synth import read_lengths, synth_labelled_fastq
-    from deepchopper_tpu_torch.ops import mixer
 
-    work = REPO / "build" / "chip_smoke_train"
+    work = REPO / "build" / "chip_smoke_train" / model
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     lengths = read_lengths(N_READS, seed=0)
     train_rows = ratio_split(N_READS, 0.8, 0.1, seed=0).train
     lengths[train_rows[0]], lengths[train_rows[1]] = 20000, 30000
     fq = synth_labelled_fastq(work / "reads.fq", lengths, seed=0)
-    argv = ["train", f"data.train_data_path={fq}", "model.name=hyenadna-small-32k-seqlen", "seed=0",
-            "trainer.max_epochs=1", f"output_dir={work / 'runs'}", "--device", "cuda"]  # fmt: skip
+    argv = ["train", f"data.train_data_path={fq}", f"model.name={model}", "seed=0", "trainer.max_epochs=1",
+            f"output_dir={work / 'runs'}", *extra, "--device", "cuda"]  # fmt: skip
     cfg = cli.train_config(cli.build_parser().parse_args(argv))
     dm = DataModule(**dataclasses.asdict(cfg.data))
     train_batches = list(dm.train_batches(0))
@@ -693,20 +1028,20 @@ def phase_train(card: str) -> dict[str, int]:
     if not {24576, 32768} <= set(widths):
         raise SmokeFailure(f"large buckets missing from the training batches: widths {widths}")
 
-    mixer.reset_launch_counts()
+    for k in counts:
+        counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(mixer.launch_counts)
+    launches = dict(counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
-        raise SmokeFailure(f"train exited {rc}")
-    n_layer = 4
-    want = {"mixer_fwd": n_layer * (n_train + n_eval), "mixer_bwd": n_layer * n_train}
+        raise SmokeFailure(f"train {model} exited {rc}")
+    want = {k: tr * n_train + ev * n_eval for k, (tr, ev) in per_batch.items()}
     if launches != want or 0 in launches.values():
-        raise SmokeFailure(f"train launches {launches} != {want} ({n_train} train, {n_eval} val+test batches)")
+        raise SmokeFailure(f"train {model} launches {launches} != {want} ({n_train} train, {n_eval} val+test batches)")
     out = work / "runs" / "train"
     rows = list(csv.DictReader(open(out / "metrics.csv")))
     if len(rows) != 1 or not all(math.isfinite(float(rows[0][k])) for k in ("train/loss", "val/loss")):
@@ -718,17 +1053,16 @@ def phase_train(card: str) -> dict[str, int]:
     if not math.isfinite(test["test/loss"]):
         raise SmokeFailure(f"test on best: {test}")
     print(
-        f"train (CLI): {n_train} steps over widths {widths}, {tokens} padded tokens, {n_eval} val+test batches, "
-        f"{elapsed:.1f} s with set-up and test-on-best; train/loss {float(rows[0]['train/loss']):.4f}, "
+        f"train {model} (CLI): {n_train} steps over widths {widths}, {tokens} padded tokens, {n_eval} val+test "
+        f"batches, {elapsed:.1f} s with set-up and test-on-best; train/loss {float(rows[0]['train/loss']):.4f}, "
         f"val/loss {float(rows[0]['val/loss']):.4f}, test {test}"
     )
-    print(f"  launches {launches} = {n_layer} layers x ({n_train} train + {n_eval} eval) / {n_layer} x {n_train}")
+    print(f"  launches {launches} (per train batch, per eval batch: {per_batch})")
     print(f"  peak device memory of the train run on {card}: {peak_gb:.2f} GB")
 
     few = synth_labelled_fastq(work / "few.fq", lengths[:8], seed=1)
     stats = cli.predict(cli.build_parser().parse_args(
-        ["predict", str(few), "--checkpoint", str(best[-1]), "--model", "hyenadna-small-32k-seqlen",
-         "-o", str(work / "pred")]))  # fmt: skip
+        ["predict", str(few), "--checkpoint", str(best[-1]), "--model", model, "-o", str(work / "pred")]))  # fmt: skip
     torch.cuda.synchronize()
     shards = sorted((work / "pred" / "0").glob("*.npz"))
     if stats.reads != 8 or not all(np.isfinite(np.load(s)["prediction"]).all() for s in shards):
@@ -740,15 +1074,13 @@ def phase_train(card: str) -> dict[str, int]:
 def phase_overfit(card: str) -> None:
     """Overfit one full batch (128 reads of 1000 bases, W = 1024, 2^17
     tokens) for at most 100 steps: the loss must fall below half its first
-    value. Then time the train step at (128, 1024) and (4, 32768)."""
+    value."""
     import numpy as np
     import torch
 
     from deepchopper_tpu_torch.data.synth import synth_labelled_fastq
-    from deepchopper_tpu_torch.models.registry import DeepChopper
     from deepchopper_tpu_torch.train.config import load_config
     from deepchopper_tpu_torch.train.loop import Trainer, TrialPruned
-    from deepchopper_tpu_torch.train.step import make_optimizer, train_step
 
     work = REPO / "build" / "chip_smoke_overfit"
     shutil.rmtree(work, ignore_errors=True)
@@ -778,15 +1110,25 @@ def phase_overfit(card: str) -> None:
         f"({time.perf_counter() - t0:.1f} s with a val pass per step)"
     )
 
-    model = DeepChopper.new("hyenadna-small-32k-seqlen", seed=0, device="cuda").train()
+
+
+def time_train_step(card: str, model_name: str, shapes: tuple, reps: int) -> None:
+    """bf16 train steps of `model_name` (random init, Adam) on each batch
+    shape after two warm-up steps: ms/step (host clock around `reps` steps
+    ending in a synchronise), padded tokens/s and peak device memory."""
+    import torch
+
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+    from deepchopper_tpu_torch.train.step import make_optimizer, train_step
+
+    model = DeepChopper.new(model_name, seed=0, device="cuda").train()
     opt = make_optimizer(model.parameters(), 2e-4)
-    for shape in ((128, 1024), (4, 32768)):
+    for shape in shapes:
         batch = training_batch(*shape, seed=9)
         for _ in range(2):
             train_step(model, opt, batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reps = 10
         t0 = time.perf_counter()
         for _ in range(reps):
             out = train_step(model, opt, batch)
@@ -795,7 +1137,7 @@ def phase_overfit(card: str) -> None:
         ms = (time.perf_counter() - t0) / reps * 1e3
         tokens = shape[0] * shape[1]
         print(
-            f"train step {shape} bf16 on {card}: {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} tokens/s "
+            f"train step {model_name} {shape} bf16 on {card}: {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} tokens/s "
             f"({tokens} padded tokens), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
         )
 
@@ -818,10 +1160,10 @@ def print_device_time(prof, wall_ms: float, what: str) -> None:
 
 
 def phase_profile(fq: Path) -> None:
-    """Profile (torch.profiler, CPU and CUDA activity) the engine over the
-    same reads once more, and three bf16 train steps at (128, 1024): device
-    time by kernel and the device's busy share of the wall time (model
-    set-up excluded)."""
+    """Profile (torch.profiler, CPU and CUDA activity), for each model, the
+    engine over the same reads once more and three bf16 train steps (Hyena
+    at (128, 1024), Caduceus at (64, 1024)): device time by kernel and the
+    device's busy share of the wall time (model set-up excluded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -829,28 +1171,33 @@ def phase_profile(fq: Path) -> None:
     from deepchopper_tpu_torch.models.registry import DeepChopper
     from deepchopper_tpu_torch.train.step import make_optimizer, train_step
 
-    engine = PredictEngine(DeepChopper.new("rna002", seed=0, device="cuda"), device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.predict_file(fq, fq.parent / "profiled")
+    for name, shape in ((HYENA, (128, 1024)), (CADUCEUS, (64, 1024))):
+        engine = PredictEngine(DeepChopper.new(name, seed=0, device="cuda"), device="cuda")
+        engine.predict_file(fq, fq.parent / "profiled", limit_batches=1)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_device_time(prof, wall_ms, "predict_file")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.predict_file(fq, fq.parent / "profiled")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        print_device_time(prof, wall_ms, f"predict_file {name}")
+        del engine
 
-    model = DeepChopper.new("hyenadna-small-32k-seqlen", seed=0, device="cuda").train()
-    opt = make_optimizer(model.parameters(), 2e-4)
-    batch = training_batch(128, 1024, seed=9)
-    for _ in range(2):
-        train_step(model, opt, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            out = train_step(model, opt, batch)
-        out["loss"].item()
+        model = DeepChopper.new(name, seed=0, device="cuda").train()
+        opt = make_optimizer(model.parameters(), 2e-4)
+        batch = training_batch(*shape, seed=9)
+        for _ in range(2):
+            train_step(model, opt, batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_device_time(prof, wall_ms, "3 train steps at (128, 1024)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                out = train_step(model, opt, batch)
+            out["loss"].item()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        print_device_time(prof, wall_ms, f"3 train steps {name} at {shape}")
+        del model, opt
 
 
 def main() -> int:
@@ -874,25 +1221,40 @@ def main() -> int:
     print(f"gpu: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     try:
-        from deepchopper_tpu_torch.ops import _build
+        from deepchopper_tpu_torch.ops import _build, mixer, scan
 
         t0 = time.perf_counter()
         built = _build.build_all()
         print(f"built {', '.join(sorted(built))} in {time.perf_counter() - t0:.1f} s")
-        fwd = phase_kernels()
-        bwd = phase_bwd_kernel()
-        _predict_launches, fq = phase_predict(card)
-        phase_train_parity()
-        launches = phase_train(card)
+        fwd = timed(phase_kernels)
+        bwd = timed(phase_bwd_kernel)
+        scan_rows = timed(phase_scan_kernels)
+        work = REPO / "build" / "chip_smoke"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        fq = bench_reads(work)
+        timed(phase_predict, card, HYENA, fq, mixer.launch_counts, "mixer_fwd", 1)
+        timed(check_hyena_against_plain, fq, work / HYENA / "out" / "0")
+        timed(phase_predict, card, CADUCEUS, fq, scan.launch_counts, "scan_fwd", 2)
+        timed(check_caduceus_against_plain, fq, work / CADUCEUS / "out" / "0")
+        timed(phase_train_parity)
+        launches = timed(phase_train, card, HYENA, mixer.launch_counts, {"mixer_fwd": (4, 4), "mixer_bwd": (4, 0)})
         fwd["launches"], bwd["launches"] = launches["mixer_fwd"], launches["mixer_bwd"]
-        phase_overfit(card)
+        per_batch = {"scan_fwd": (32, 32), "scan_ckpt": (32, 0), "scan_bwd": (32, 0)}
+        launches = timed(phase_train, card, CADUCEUS, scan.launch_counts, per_batch,
+                         (f"data.tokens_per_batch={CADUCEUS_TRAIN_TOKENS}",))  # fmt: skip
+        for row in scan_rows:
+            row["launches"] = launches[row["name"]]
+        timed(phase_overfit, card)
+        timed(time_train_step, card, HYENA, ((128, 1024), (4, 32768)), 10)
+        timed(time_train_step, card, CADUCEUS, ((64, 1024), (2, 32768)), 3)
         if opts.profile:
             phase_profile(fq)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
     print(gpu_line())
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd, *scan_rows]}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -1,1 +1,1 @@
-"""Hyena token classifiers, their registry and the JAX-parameter bridge."""
+"""Hyena and Caduceus token classifiers, their registry and the JAX-parameter bridge."""

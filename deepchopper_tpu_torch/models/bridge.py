@@ -1,7 +1,7 @@
 """JAX parameter tree -> port state_dict.
 
 The role `deepchopper_tpu/models/convert.py` plays between checkpoint
-layouts: given the flax parameter tree of a Hyena classifier as nested dicts
+layouts: given the flax parameter tree of a classifier as nested dicts
 of numpy arrays (`jax.tree.map(np.asarray, params)`), return the
 `state_dict` of the port's module with the same weights, so both packages
 compute the same function. Module paths are the flax paths; flax `Dense`
@@ -20,7 +20,7 @@ _RENAMES = {"scale": "weight", "embedding": "weight"}
 
 
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flatten a flax Hyena classifier tree into the port's state_dict."""
+    """Flatten a flax classifier tree into the port's state_dict."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:

@@ -1,6 +1,8 @@
-"""Top-level token classifier: Hyena backbone + quality-fusing head.
+"""Top-level token classifiers: backbone + quality-fusing head.
 
-Port of `deepchopper_tpu/models/classifier.py:HyenaTokenClassifier`.
+Port of `deepchopper_tpu/models/classifier.py:HyenaTokenClassifier` and
+`CaduceusTokenClassifier`. Both take input_ids (B, L) int and input_quals
+(B, L) float32 and return logits (B, L, 2) float32.
 """
 
 from __future__ import annotations
@@ -8,25 +10,45 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .config import HeadConfig, HyenaConfig
+from .caduceus import CaduceusBackbone
+from .config import CaduceusConfig, HeadConfig, HyenaConfig
 from .head import TokenClassificationHead
 from .hyena import HyenaBackbone
 
 
-class HyenaTokenClassifier(nn.Module):
-    """input_ids (B, L) int, input_quals (B, L) float32 -> logits (B, L, 2) float32."""
-
-    def __init__(self, backbone_config: HyenaConfig, head_config: HeadConfig, name: str = ""):
+class _TokenClassifier(nn.Module):
+    def __init__(self, backbone: nn.Module, backbone_config, head_config: HeadConfig, name: str):
         super().__init__()
         self.name = name
         self.backbone_config = backbone_config
         self.head_config = head_config
-        self.backbone = HyenaBackbone(backbone_config)
+        self.backbone = backbone
         self.head = TokenClassificationHead(head_config)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.backbone.reset_parameters(gen)
         self.head.reset_parameters(gen)
 
+
+class HyenaTokenClassifier(_TokenClassifier):
+    """The Hyena backbone, whose (B, D, L) hidden state the head reads as it is."""
+
+    def __init__(self, backbone_config: HyenaConfig, head_config: HeadConfig, name: str = ""):
+        super().__init__(HyenaBackbone(backbone_config), backbone_config, head_config, name)
+
     def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor) -> torch.Tensor:
         return self.head(self.backbone(input_ids), input_quals)
+
+
+class CaduceusTokenClassifier(_TokenClassifier):
+    """The Caduceus backbone, whose (B, L, D) hidden state reaches the
+    channel-first head as a transposed view."""
+
+    def __init__(self, backbone_config: CaduceusConfig, head_config: HeadConfig, name: str = ""):
+        super().__init__(CaduceusBackbone(backbone_config), backbone_config, head_config, name)
+
+    def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor) -> torch.Tensor:
+        return self.head(self.backbone(input_ids).transpose(1, 2), input_quals)
+
+
+TokenClassifier = HyenaTokenClassifier | CaduceusTokenClassifier

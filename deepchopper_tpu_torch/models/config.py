@@ -1,9 +1,10 @@
-"""Model configurations for the Hyena token classifiers.
+"""Model configurations for the Hyena and Caduceus token classifiers.
 
-Copy of the Hyena part of `deepchopper_tpu/models/config.py`. Field names and
-defaults are the JAX config's, so a config converts field by field; the JAX
-`conv_impl` field is left out, as the port has one long-conv implementation
-(`ops/mixer.py`).
+Copy of the Hyena and Caduceus parts of `deepchopper_tpu/models/config.py`.
+Field names and defaults are the JAX configs', so a config converts field by
+field. Two JAX fields are left out, each because the port has a single
+implementation per device: Hyena's `conv_impl` (the long conv is
+`ops/mixer.py`) and Caduceus's `scan_chunk` (the scan is `ops/scan.py`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,47 @@ HYENA_CONFIGS: dict[str, HyenaConfig] = {
     "hyenadna-medium-160k-seqlen": MEDIUM_160K,
     "hyenadna-medium-450k-seqlen": MEDIUM_450K,
     "hyenadna-large-1m-seqlen": LARGE_1M,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class CaduceusConfig:
+    """Caduceus bidirectional-Mamba backbone hyperparameters (the
+    caduceus-*_seqlen-131k_d_model-256_n_layer-16 defaults)."""
+
+    d_model: int = 256
+    n_layer: int = 16
+    vocab_size: int = 12
+    pad_vocab_size_multiple: int = 8
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 16  # ceil(d_model / 16)
+    max_seq_len: int = 131072
+    layer_norm_epsilon: float = 1e-5
+    # in_proj, x_proj and out_proj run in this dtype; everything else
+    # (residual stream, conv, dt_proj, scan, RMSNorm) in float32.
+    compute_dtype: str = "bfloat16"
+    # True = "ph" (forward and reverse mixers share weights); False = "ps"
+    # (a separate reverse mixer).
+    bidirectional_weight_tie: bool = True
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.pad_vocab_size_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+
+CADUCEUS_PH_131K = CaduceusConfig()
+CADUCEUS_PS_131K = CaduceusConfig(bidirectional_weight_tie=False)
+CADUCEUS_TINY = CaduceusConfig(d_model=64, n_layer=2, d_state=8, dt_rank=4, max_seq_len=1024)
+CADUCEUS_TINY_PS = CaduceusConfig(
+    d_model=64, n_layer=2, d_state=8, dt_rank=4, max_seq_len=1024, bidirectional_weight_tie=False
+)
+
+CADUCEUS_CONFIGS: dict[str, CaduceusConfig] = {
+    "caduceus-ph_seqlen-131k_d_model-256_n_layer-16": CADUCEUS_PH_131K,
+    "caduceus-ps_seqlen-131k_d_model-256_n_layer-16": CADUCEUS_PS_131K,
 }
 
 

@@ -1,6 +1,6 @@
 """Model registry and the `DeepChopper` factory.
 
-Port of the Hyena part of `deepchopper_tpu/models/registry.py`. Factories
+Port of the Hyena and Caduceus parts of `deepchopper_tpu/models/registry.py`. Factories
 return the classifier `nn.Module` on the requested device, in eval mode (the
 trainer puts its model in train mode). Random initialisation draws from a
 seeded `torch.Generator` with the flax initialisers' distributions (its
@@ -18,12 +18,12 @@ from pathlib import Path
 import torch
 
 from ..device import resolve_device
-from .classifier import HyenaTokenClassifier
-from .config import HYENA_CONFIGS, HeadConfig
+from .classifier import CaduceusTokenClassifier, HyenaTokenClassifier, TokenClassifier
+from .config import CADUCEUS_CONFIGS, CADUCEUS_TINY, CADUCEUS_TINY_PS, HYENA_CONFIGS, HeadConfig
 
 log = logging.getLogger(__name__)
 
-MODEL_REGISTRY: dict[str, Callable[[], HyenaTokenClassifier]] = {}
+MODEL_REGISTRY: dict[str, Callable[[], TokenClassifier]] = {}
 
 
 def register(name: str):
@@ -59,7 +59,32 @@ def _hyena_tiny() -> HyenaTokenClassifier:
     )
 
 
-def build_model(name: str, head_overrides: dict | None = None) -> HyenaTokenClassifier:
+@register("caduceus-ph_seqlen-131k_d_model-256_n_layer-16")
+def _caduceus_131k() -> CaduceusTokenClassifier:
+    return CaduceusTokenClassifier(CADUCEUS_CONFIGS["caduceus-ph_seqlen-131k_d_model-256_n_layer-16"], _default_head())
+
+
+@register("caduceus-ps_seqlen-131k_d_model-256_n_layer-16")
+def _caduceus_131k_ps() -> CaduceusTokenClassifier:
+    """Untied (separate reverse-mixer) variant."""
+    return CaduceusTokenClassifier(CADUCEUS_CONFIGS["caduceus-ps_seqlen-131k_d_model-256_n_layer-16"], _default_head())
+
+
+def _tiny_head() -> HeadConfig:
+    return dataclasses.replace(_default_head(), input_size=64, lin1_size=128, lin2_size=128)
+
+
+@register("caduceus-tiny")
+def _caduceus_tiny() -> CaduceusTokenClassifier:
+    return CaduceusTokenClassifier(CADUCEUS_TINY, _tiny_head())
+
+
+@register("caduceus-tiny-ps")
+def _caduceus_tiny_ps() -> CaduceusTokenClassifier:
+    return CaduceusTokenClassifier(CADUCEUS_TINY_PS, _tiny_head())
+
+
+def build_model(name: str, head_overrides: dict | None = None) -> TokenClassifier:
     """Build a registered model, optionally overriding head hyperparameters
     (`lin1_size`, which implies `lin2_size`, and `use_identity_layer_for_qual`)."""
     if name not in MODEL_REGISTRY:
@@ -69,7 +94,7 @@ def build_model(name: str, head_overrides: dict | None = None) -> HyenaTokenClas
         over = dict(head_overrides)
         if "lin1_size" in over and "lin2_size" not in over:
             over["lin2_size"] = over["lin1_size"]
-        model = HyenaTokenClassifier(model.backbone_config, dataclasses.replace(model.head_config, **over))
+        model = type(model)(model.backbone_config, dataclasses.replace(model.head_config, **over))
     model.name = name
     return model
 
@@ -129,7 +154,7 @@ class DeepChopper:
         seed: int = 0,
         device: str | torch.device = "cuda",
         head_overrides: dict | None = None,
-    ) -> HyenaTokenClassifier:
+    ) -> TokenClassifier:
         dev = resolve_device(device)
         model = build_model(name, head_overrides)
         gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -142,7 +167,7 @@ class DeepChopper:
         name: str = "hyenadna-small-32k-seqlen",
         device: str | torch.device = "cuda",
         head_overrides: dict | None = None,
-    ) -> HyenaTokenClassifier:
+    ) -> TokenClassifier:
         """Load a trainer checkpoint or a bare `state_dict` saved with
         `torch.save`; `head_overrides` must be those it was trained with."""
         dev = resolve_device(device)
@@ -157,7 +182,7 @@ class DeepChopper:
         torch_checkpoint: str | Path | None = None,
         random_init: bool = False,
         device: str | torch.device = "cuda",
-    ) -> HyenaTokenClassifier:
+    ) -> TokenClassifier:
         """Pretrained weights; with none given this is a HARD ERROR (silent
         random weights predict garbage) unless `random_init=True`."""
         name = DeepChopper.PRETRAINED_ALIASES.get(model_name, model_name)

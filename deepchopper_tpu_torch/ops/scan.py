@@ -1,0 +1,339 @@
+"""Selective scan of the Mamba mixer (Caduceus backbone).
+
+Port of `deepchopper_tpu/ops/pallas_scan.py`. The public function keeps the
+JAX layout and contract:
+
+    selective_scan(u (B, L, Din) f32, delta (B, L, Din) f32, A (Din, N),
+                   Bp (B, L, N), Cp (B, L, N), D (Din,), reverse) -> y (B, L, Din) f32
+
+    h[t] = exp(delta[t] ⊗ A) ⊙ h[t-1] + (delta[t] ⊙ u[t]) ⊗ Bp[t]
+    y[t] = Σ_n Cp[t, n] h[t][:, n] + D ⊙ u[t]
+
+with h = 0 before the first step; `reverse=True` walks from t = L-1 down to
+0, which is flip(scan(flip(inputs))) without the flips.
+
+It is differentiable through `ScanFn`, the counterpart of the JAX package's
+`custom_vjp`: the forward saves only its inputs. On CUDA tensors the forward
+launches `csrc/scan_fwd.cu` (the port of `_scan_kernel`) and the backward
+launches `scan_ckpt` then `scan_bwd` of `csrc/scan_bwd.cu` (the ports of
+`_scan_ckpt_kernel` and `_scan_bwd_kernel`): the first stores the state at
+the entry of every `CKPT_CHUNK`-step chunk, the second walks the chunks
+against the scan's direction, recomputes the states of a chunk from its
+checkpoint and runs the cotangent recurrence. On CPU tensors they run
+`selective_scan_reference` and `scan_bwd_reference`, the plain PyTorch
+versions. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+# Launches of each CUDA kernel since the last reset: one per wrapper call
+# that reached the card. Read by chip_smoke.py to show the main path ran
+# through the kernels.
+launch_counts: dict[str, int] = {"scan_fwd": 0, "scan_ckpt": 0, "scan_bwd": 0}
+
+# Steps per checkpoint chunk: fixed by the kernels (`kChunk` in
+# csrc/scan_common.cuh). Chunk c covers t in [c * CKPT_CHUNK, (c + 1) * CKPT_CHUNK).
+CKPT_CHUNK = 32
+# States the kernels take (the flagship's 16, the tiny configs' 8): one
+# thread per (channel, state), 256 a block.
+KERNEL_STATES = (8, 16)
+_THREADS = 256
+# Tokens (batch rows x steps) per chunk of the plain scan: bounds its
+# (B, chunk, Din, N) float32 intermediates (4096 tokens x 512 x 16 x 4 B =
+# 128 MiB each at the flagship's widths).
+PLAIN_CHUNK_TOKENS = 4096
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# -- plain versions -------------------------------------------------------------
+
+
+def _affine_prefix(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan over dim 1 of the affine maps h -> a h + b, composed
+    (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2), by Hillis-Steele doubling."""
+    step = 1
+    while step < a.shape[1]:
+        a_head, b_head = a[:, :step], b[:, :step]
+        b = torch.cat([b_head, a[:, step:] * b[:, :-step] + b[:, step:]], dim=1)
+        a = torch.cat([a_head, a[:, step:] * a[:, :-step]], dim=1)
+        step *= 2
+    return a, b
+
+
+def _chunk_states(u, delta, A, Bp, h0) -> torch.Tensor:
+    """States h (B, c, Din, N) of the steps of one chunk, in order, from the
+    entry state h0 (B, Din, N)."""
+    a = torch.exp(delta[..., None] * A)
+    b = (delta * u)[..., None] * Bp[:, :, None, :]
+    ca, cb = _affine_prefix(a, b)
+    return ca * h0[:, None] + cb
+
+
+def _plain_chunk(batch: int, chunk: int | None) -> int:
+    return chunk or max(1, PLAIN_CHUNK_TOKENS // batch)
+
+
+def _flip_time(*ts: torch.Tensor) -> list[torch.Tensor]:
+    return [t.flip(1) for t in ts]
+
+
+def selective_scan_reference(u, delta, A, Bp, Cp, D, reverse: bool = False, chunk: int | None = None):
+    """Plain PyTorch scan in float32: a chunked associative scan (the math of
+    `models/caduceus.py:selective_scan`), carrying the (B, Din, N) end state
+    from chunk to chunk. `reverse` flips around it, as `_scan_reference_xla`
+    does. `chunk` steps per chunk (default: PLAIN_CHUNK_TOKENS // B)."""
+    u, delta, A, Bp, Cp, D = (t.float() for t in (u, delta, A, Bp, Cp, D))
+    if reverse:
+        u, delta, Bp, Cp = _flip_time(u, delta, Bp, Cp)
+    batch, seq_len, d_in = u.shape
+    chunk = _plain_chunk(batch, chunk)
+    h = u.new_zeros(batch, d_in, A.shape[1])
+    ys = []
+    for lo in range(0, seq_len, chunk):
+        sl = slice(lo, min(seq_len, lo + chunk))
+        hs = _chunk_states(u[:, sl], delta[:, sl], A, Bp[:, sl], h)
+        ys.append(torch.einsum("bldn,bln->bld", hs, Cp[:, sl]))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1) + u * D
+    return y.flip(1) if reverse else y
+
+
+def scan_ckpt_reference(u, delta, A, Bp, reverse: bool = False, chunk: int = CKPT_CHUNK) -> torch.Tensor:
+    """Plain chunk-entry states (B, nl, N, Din) float32, nl = ceil(L / chunk):
+    entry c is the state on entering chunk c (t in [c chunk, (c+1) chunk)) in
+    the scan's direction of walk, so entry 0 of a forward scan and entry
+    nl-1 of a reverse scan are zero."""
+    u, delta, A, Bp = (t.float() for t in (u, delta, A, Bp))
+    batch, seq_len, d_in = u.shape
+    nl = -(-seq_len // chunk)
+    out = u.new_empty(batch, nl, A.shape[1], d_in)
+    h = u.new_zeros(batch, d_in, A.shape[1])
+    for c in reversed(range(nl)) if reverse else range(nl):
+        out[:, c] = h.transpose(1, 2)
+        sl = slice(c * chunk, min(seq_len, (c + 1) * chunk))
+        seg = [u[:, sl], delta[:, sl], Bp[:, sl]]
+        if reverse:
+            seg = _flip_time(*seg)
+        h = _chunk_states(seg[0], seg[1], A, seg[2], h)[:, -1]
+    return out
+
+
+def scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse: bool = False, chunk: int | None = None):
+    """Autograd of the plain forward: (du, ddelta, dA, dBp, dCp, dD) float32.
+
+    Run one chunk at a time, from the last chunk of the walk to the first:
+    each chunk's forward is recomputed from its entry state, and autograd
+    takes dy and the cotangent of the state leaving the chunk to the
+    cotangents of the chunk's inputs and of its entry state. This is autograd
+    of `selective_scan_reference` with the graph of one chunk alive at a time."""
+    u, delta, A, Bp, Cp, D, dy = (t.float() for t in (u, delta, A, Bp, Cp, D, dy))
+    if reverse:
+        u, delta, Bp, Cp, dy = _flip_time(u, delta, Bp, Cp, dy)
+    batch, seq_len, d_in = u.shape
+    chunk = _plain_chunk(batch, chunk)
+    bounds = [(lo, min(seq_len, lo + chunk)) for lo in range(0, seq_len, chunk)]
+    entries = []
+    with torch.no_grad():
+        h = u.new_zeros(batch, d_in, A.shape[1])
+        for lo, hi in bounds:
+            entries.append(h)
+            h = _chunk_states(u[:, lo:hi], delta[:, lo:hi], A, Bp[:, lo:hi], h)[:, -1]
+    du, ddelta, dbp, dcp = (torch.empty_like(t) for t in (u, delta, Bp, Cp))
+    d_a, d_d = torch.zeros_like(A), torch.zeros_like(D)
+    g_out = torch.zeros_like(h)
+    for (lo, hi), h0 in zip(reversed(bounds), reversed(entries)):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (u[:, lo:hi], delta[:, lo:hi], A, Bp[:, lo:hi],
+                                                               Cp[:, lo:hi], D, h0)]  # fmt: skip
+            uc, dc, ac, bc, cc, dsk, h_in = leaves
+            hs = _chunk_states(uc, dc, ac, bc, h_in)
+            y = torch.einsum("bldn,bln->bld", hs, cc) + uc * dsk
+            grads = torch.autograd.grad((y, hs[:, -1]), leaves, (dy[:, lo:hi], g_out))
+        du[:, lo:hi], ddelta[:, lo:hi], dbp[:, lo:hi], dcp[:, lo:hi] = grads[0], grads[1], grads[3], grads[4]
+        d_a += grads[2]
+        d_d += grads[5]
+        g_out = grads[6]
+    if reverse:
+        du, ddelta, dbp, dcp = _flip_time(du, ddelta, dbp, dcp)
+    return du, ddelta, d_a, dbp, dcp, d_d
+
+
+# -- CUDA kernels -----------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib() -> ctypes.CDLL:
+    from . import _build
+
+    lib = _build.load("scan_fwd.cu")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.scan_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [i64] * 4 + [i32, ptr]
+    lib.scan_fwd.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    from . import _build
+
+    lib = _build.load("scan_bwd.cu")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.scan_ckpt.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 2 + [i32, ptr]
+    lib.scan_ckpt.restype = i32
+    lib.scan_bwd.argtypes = [ptr] * 15 + [i32] * 4 + [i64] * 4 + [i32, ptr]
+    lib.scan_bwd.restype = i32
+    lib.scan_bwd_scratch_floats.argtypes = [i32] * 4
+    lib.scan_bwd_scratch_floats.restype = i64
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"selective_scan: {msg}")
+
+
+def _check_kernel_args(u, delta, A, Bp, Cp=None, D=None, dy=None) -> None:
+    """Raise on what the CUDA kernels do not take: CUDA float32 tensors on
+    one device; u, delta (and dy) contiguous (B, L, Din); Bp, Cp (B, L, N)
+    with unit stride along N (slices of x_proj's output are taken as they
+    are); A (Din, N); D (Din,); N in KERNEL_STATES and Din a multiple of the
+    block's 256 / N channels."""
+    _check(u.is_cuda, "u must be a CUDA tensor")
+    _check(u.dim() == 3, f"u must be (B, L, Din), got {tuple(u.shape)}")
+    batch, seq_len, d_in = u.shape
+    _check(batch > 0 and seq_len > 0, f"empty input {tuple(u.shape)}")
+    _check(A.dim() == 2 and A.shape[0] == d_in, f"A must be (Din={d_in}, N), got {tuple(A.shape)}")
+    n = A.shape[1]
+    _check(n in KERNEL_STATES, f"the kernels take d_state in {KERNEL_STATES}, got {n}")
+    _check(d_in % (_THREADS // n) == 0, f"Din {d_in} is not a multiple of {_THREADS // n} (256 / N)")
+    named = [("u", u, (batch, seq_len, d_in)), ("delta", delta, (batch, seq_len, d_in)), ("A", A, (d_in, n)),
+             ("Bp", Bp, (batch, seq_len, n))]  # fmt: skip
+    if Cp is not None:
+        named += [("Cp", Cp, (batch, seq_len, n)), ("D", D, (d_in,))]
+    if dy is not None:
+        named.append(("dy", dy, (batch, seq_len, d_in)))
+    for name, t, shape in named:
+        _check(t.device == u.device, f"{name} is on {t.device}, u on {u.device}")
+        _check(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+        _check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
+    for name, t in (("u", u), ("delta", delta), ("dy", dy)):
+        _check(t is None or t.is_contiguous(), f"{name} must be contiguous")
+    for name, t in (("Bp", Bp), ("Cp", Cp)):
+        if t is not None:
+            _check(t.stride(2) == 1, f"{name} needs unit stride along N, got strides {t.stride()}")
+
+
+def _nl(seq_len: int) -> int:
+    return -(-seq_len // CKPT_CHUNK)
+
+
+def scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse: bool = False) -> torch.Tensor:
+    """Launch `csrc/scan_fwd.cu` on the current stream (no synchronise)."""
+    _check_kernel_args(u, delta, A, Bp, Cp, D)
+    batch, seq_len, d_in = u.shape
+    a, dsk = A.contiguous(), D.contiguous()
+    y = torch.empty_like(u)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        err = _fwd_lib().scan_fwd(
+            u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), dsk.data_ptr(), y.data_ptr(),
+            batch, seq_len, d_in, a.shape[1], Bp.stride(0), Bp.stride(1), Cp.stride(0), Cp.stride(1),
+            int(reverse), stream,
+        )  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"scan_fwd launch failed: cudaError {err} at (B={batch}, L={seq_len}, Din={d_in})")
+    launch_counts["scan_fwd"] += 1
+    return y
+
+
+def scan_ckpt_cuda(u, delta, A, Bp, reverse: bool = False) -> torch.Tensor:
+    """Launch `scan_ckpt` of `csrc/scan_bwd.cu`: the chunk-entry states
+    (B, nl, N, Din), as `scan_ckpt_reference` at chunk CKPT_CHUNK."""
+    _check_kernel_args(u, delta, A, Bp)
+    batch, seq_len, d_in = u.shape
+    a = A.contiguous()
+    ckpt = torch.empty((batch, _nl(seq_len), a.shape[1], d_in), dtype=torch.float32, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        err = _bwd_lib().scan_ckpt(
+            u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), ckpt.data_ptr(),
+            batch, seq_len, d_in, a.shape[1], Bp.stride(0), Bp.stride(1), int(reverse), stream,
+        )  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"scan_ckpt launch failed: cudaError {err} at (B={batch}, L={seq_len}, Din={d_in})")
+    launch_counts["scan_ckpt"] += 1
+    return ckpt
+
+
+def scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse: bool = False):
+    """Launch `scan_bwd` of `csrc/scan_bwd.cu` from the checkpoints of
+    `scan_ckpt_cuda`: (du, ddelta, dA, dBp, dCp, dD) float32."""
+    _check_kernel_args(u, delta, A, Bp, Cp, D, dy)
+    batch, seq_len, d_in = u.shape
+    n = A.shape[1]
+    _check(ckpt.is_contiguous() and tuple(ckpt.shape) == (batch, _nl(seq_len), n, d_in),
+           f"ckpt must be contiguous {(batch, _nl(seq_len), n, d_in)}, got {tuple(ckpt.shape)}")  # fmt: skip
+    _check(ckpt.device == u.device and ckpt.dtype == torch.float32, "ckpt must be float32 on u's device")
+    a, dsk = A.contiguous(), D.contiguous()
+    du, ddelta = torch.empty_like(u), torch.empty_like(u)
+    dbp = torch.empty((batch, seq_len, n), dtype=torch.float32, device=u.device)
+    dcp = torch.empty_like(dbp)
+    d_a, d_d = torch.empty_like(a), torch.empty_like(dsk)
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.scan_bwd_scratch_floats(batch, seq_len, d_in, n), dtype=torch.float32, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        err = lib.scan_bwd(
+            u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), dsk.data_ptr(),
+            dy.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(),
+            du.data_ptr(), ddelta.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), d_a.data_ptr(), d_d.data_ptr(),
+            batch, seq_len, d_in, n, Bp.stride(0), Bp.stride(1), Cp.stride(0), Cp.stride(1), int(reverse), stream,
+        )  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"scan_bwd launch failed: cudaError {err} at (B={batch}, L={seq_len}, Din={d_in})")
+    launch_counts["scan_bwd"] += 1
+    return du, ddelta, d_a, dbp, dcp, d_d
+
+
+class ScanFn(torch.autograd.Function):
+    """The selective scan with its hand-written backward. Saves only its
+    inputs: the backward recomputes the states from chunk checkpoints, as
+    the JAX backward kernels do."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, Bp, Cp, D, reverse):
+        ctx.save_for_backward(u, delta, A, Bp, Cp, D)
+        ctx.reverse = reverse
+        if u.device.type == "cuda":
+            return scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+        return selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        u, delta, A, Bp, Cp, D = ctx.saved_tensors
+        if u.device.type == "cuda":
+            ckpt = scan_ckpt_cuda(u, delta, A, Bp, ctx.reverse)
+            grads = scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy.contiguous(), ckpt, ctx.reverse)
+        else:
+            grads = scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, ctx.reverse)
+        return (*grads, None)
+
+
+def selective_scan(u, delta, A, Bp, Cp, D, reverse: bool = False) -> torch.Tensor:
+    """The selective scan: y (B, L, Din) float32, differentiable.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels;
+    any other device raises."""
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"selective_scan: no implementation for device {u.device}")
+    return ScanFn.apply(u, delta, A, Bp, Cp, D, reverse)

@@ -96,3 +96,85 @@ def test_gradient_through_mixer_fn_on_the_card(cuda):
     mixer.mixer_reference(*plain).backward(dy)
     for leaf, want in zip(leaves, plain):
         assert (leaf.grad - want.grad).abs().max().item() <= 1e-4 * want.grad.abs().max().item()
+
+
+# -- selective scan (Caduceus) ------------------------------------------------------
+
+
+def _scan_inputs(batch, seq_len, d_in, n, device, seed=0):
+    """u, delta, A, Bp, Cp, D, dy; Bp and Cp sliced from one projection, as
+    the mixer makes them."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    proj = f32(rng.standard_normal((batch, seq_len, 4 + 2 * n)))
+    return (f32(rng.standard_normal((batch, seq_len, d_in))), f32(rng.uniform(0.01, 1.0, (batch, seq_len, d_in))),
+            f32(-rng.uniform(0.1, 4.0, (d_in, n))), proj[..., 4 : 4 + n], proj[..., 4 + n :],
+            f32(rng.standard_normal(d_in)), f32(rng.standard_normal((batch, seq_len, d_in))))  # fmt: skip
+
+
+def _rel(got, want):
+    """Max-abs error of max|want| (an all-zero want, as the checkpoints of a
+    one-tile scan are, asks for an exact zero)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+# (B, L, Din, N): N = 16 at the flagship's Din; N = 8 (the tiny configs);
+# L = 1, 31, 33 and 1000 are ragged against the 32-step tiles.
+SCAN_SHAPES = [(2, 1000, 512, 16), (3, 33, 64, 8), (1, 31, 128, 8), (2, 1, 64, 16), (4, 4096, 512, 16)]
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_kernels_match_plain(cuda, shape, reverse):
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, dy = _scan_inputs(*shape, cuda, seed=shape[1])
+    scan.reset_launch_counts()
+    y = scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+    ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+    grads = scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse)
+    again = scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse)
+    torch.cuda.synchronize()
+    assert scan.launch_counts == {"scan_fwd": 1, "scan_ckpt": 1, "scan_bwd": 2}
+    assert _rel(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)) <= 1e-5
+    assert _rel(ckpt, scan.scan_ckpt_reference(u, delta, A, Bp, reverse)) <= 1e-5
+    want = scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)
+    for name, tol, g, a, w in zip(("du", "ddelta", "dA", "dBp", "dCp", "dD"), (1e-5, 1e-5, 1e-4, 1e-5, 1e-5, 1e-4),
+                                  grads, again, want):  # fmt: skip
+        assert torch.equal(g, a), name  # no atomics: bitwise repeatable
+        assert _rel(g, w) <= tol, name
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gradient_through_scan_fn_on_the_card(cuda, reverse):
+    from deepchopper_tpu_torch.ops import scan
+
+    *args, dy = _scan_inputs(2, 300, 64, 16, cuda, seed=5)
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    scan.reset_launch_counts()
+    y = scan.selective_scan(*leaves, reverse=reverse)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert scan.launch_counts == {"scan_fwd": 1, "scan_ckpt": 1, "scan_bwd": 1}
+    for leaf, want in zip(leaves, scan.scan_bwd_reference(*args, dy, reverse)):
+        assert _rel(leaf.grad, want) <= 1e-4
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(cuda):
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, _dy = _scan_inputs(1, 64, 64, 16, cuda)
+    bad = {
+        "d_state 4": (u, delta, A[:, :4], Bp[..., :4], Cp[..., :4], D),
+        "Din not a multiple of 16": (u[..., :40], delta[..., :40], A[:40], Bp, Cp, D[:40]),
+        "float64": (u.double(), delta, A, Bp, Cp, D),
+        "non-contiguous u": (u[:, ::2], delta[:, ::2], A, Bp[:, ::2], Cp[:, ::2], D),
+        "strided N": (u, delta, A, Bp.transpose(1, 2).contiguous().transpose(1, 2), Cp, D),
+        "D on the CPU": (u, delta, A, Bp, Cp, D.cpu()),
+    }
+    for why, args in bad.items():
+        with pytest.raises(ValueError):
+            scan.scan_fwd_cuda(*args)
+            pytest.fail(why)
