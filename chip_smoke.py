@@ -22,6 +22,14 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      scan_bwd's du, ddelta, dBp, dCp within 1e-5 and dA, dD (sums over B * L
      terms) within 1e-4 of each one's max|ref|, bitwise repeatable; timed
      beside their bounds (bytes, f32 flops, and exps at 16 a clock per SM).
+   - the gated conv (gated_fwd, the unfused Hyena route) and the
+     in_proj-fused mixer (mixer_inproj_fwd) at D = 256, B = 2, f32 (1e-4 of
+     max|ref|) and bf16 (1e-2); the causal conv (conv_fwd) in f32 only. Then
+     each at B = 2^17 // W, timed beside its plain version and its bound (the
+     in_proj kernel's also counts its GEMM at the bf16 tensor-core peak), the
+     in_proj kernel also beside the composed route (torch.matmul + mixer_fwd).
+     The causal conv's own path, the public op `models.hyena.causal_conv`,
+     runs once a width over the ladder (no model route reaches it).
 3. Drives `predict --random-init` (the CLI's own parser and code path) over
    ~300 seeded reads with the benchmark's length mix, including reads in the
    24576 and 32768 buckets, on hyenadna-small-32k-seqlen and on
@@ -33,13 +41,17 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    positions outside the bf16 tie band, in float32 the logits agree within a
    fixed limit; a faulty version must fail both rules (see
    check_against_plain). Reports reads/s and tokens/s after one batch of
-   warm-up.
-4. Train-step parity, each model: one float32 forward and backward with the
-   kernels and with the plain version swapped in; every gradient leaf
-   within a limit of its max, and a faulty backward must fail it
-   (train_parity).
-5. Drives `train` (the CLI's parser and code path) on each model at full
-   width: one epoch over ~300 labelled reads with the benchmark's length mix
+   warm-up. Hyena runs on each of its three mixer routes (default fused,
+   DEEPCHOPPER_FUSE_SHORT=0 unfused: gated_fwd once a layer and mixer_fwd
+   never; DEEPCHOPPER_FUSE_INPROJ=1: mixer_inproj_fwd once a layer), and
+   each route other than the default is also held, in f32, to the default
+   route's logits on the same batches.
+4. Train-step parity, each model and Hyena route: one float32 forward and
+   backward with the kernels and with the plain version swapped in; every
+   gradient leaf within a limit of its max, and a faulty backward must fail
+   it (train_parity).
+5. Drives `train` (the CLI's parser and code path) on each model, Hyena on
+   each route, at full width: one epoch over ~300 labelled reads with the benchmark's length mix
    and reads in the 24576 and 32768 buckets, a val pass, test on the best
    checkpoint; checks finite losses, the checkpoints and the launches per
    batch, then `predict --checkpoint <best>` on a few reads. Caduceus trains
@@ -49,8 +61,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    tokens/s and peak memory.
 6. With `--profile`, profiles one more pass of predict and three train
    steps of each model: device time by kernel and the device's busy share.
-7. Prints the kernel table as one JSON line (launches from the train runs)
-   and, last, the contract line.
+7. Prints the kernel table as one JSON line (launches from the train runs;
+   conv_fwd's from its op's run) and, last, the contract line.
 
 Any failed phase exits non-zero without the contract line. Without CUDA, or
 outside a checkout of the repository, it exits non-zero at once.
@@ -113,6 +125,45 @@ def timed(phase, *args):
     out = phase(*args)
     print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]", flush=True)
     return out
+
+
+class Counts:
+    """The launch counters of several op modules, reset and read together."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self) -> None:
+        for module in self.modules:
+            module.reset_launch_counts()
+
+    def read(self) -> dict[str, int]:
+        return {k: v for module in self.modules for k, v in module.launch_counts.items()}
+
+
+@contextlib.contextmanager
+def route_env(env: dict):
+    """Set the Hyena mixer route's environment variables (as the JAX package
+    reads them) for the duration, then restore them."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ROUTE_KEYS}
+    for k in ROUTE_KEYS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+ROUTE_KEYS = ("DEEPCHOPPER_FUSE_SHORT", "DEEPCHOPPER_FUSE_INPROJ")
+UNFUSED = {"DEEPCHOPPER_FUSE_SHORT": "0"}
+INPROJ = {"DEEPCHOPPER_FUSE_INPROJ": "1"}
 
 
 def mixer_inputs(batch: int, d_model: int, seq_len: int, dtype, seed: int):
@@ -524,18 +575,20 @@ def bench_reads(work: Path) -> Path:
     return synth_fastq(work / "reads.fq", lengths, seed=0)
 
 
-def phase_predict(card: str, model: str, fq: Path, counts: dict, kernel: str, per_layer: int) -> int:
+def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: dict[str, int], tag: str = "") -> dict:
     """`predict --random-init` through the CLI on `model` over the reads of
-    `fq`, after a warm-up batch; the shards must hold every read with finite
-    logits in the 24576 and 32768 buckets, and `kernel` must have launched
-    per_layer x n_layer times per batch. Then the plain-version checks."""
+    `fq`, after a warm-up batch, into `fq.parent / (model + tag) / "out"`;
+    the shards must hold every read with finite logits in the 24576 and
+    32768 buckets, and each kernel k of per_layer must have launched
+    per_layer[k] x n_layer times per batch (0 for a kernel the route must
+    not reach). Returns the launches."""
     import numpy as np
     import torch
 
     from deepchopper_tpu_torch import cli
     from deepchopper_tpu_torch.models.registry import build_model
 
-    work = fq.parent / model
+    work = fq.parent / (model + tag)
     parser = cli.build_parser()
     base = ["predict", str(fq), "--model", model, "--random-init"]
     cli.predict(parser.parse_args([*base, "-o", str(work / "warm"), "--limit-batches", "1"]))
@@ -543,11 +596,10 @@ def phase_predict(card: str, model: str, fq: Path, counts: dict, kernel: str, pe
 
     out = work / "out"
     args = parser.parse_args([*base, "-o", str(out)])
-    for k in counts:
-        counts[k] = 0
+    counts.reset()
     stats = cli.predict(args)
     torch.cuda.synchronize()
-    launches = counts[kernel]
+    launches = counts.read()
 
     n_layer = build_model(model).backbone_config.n_layer
     shards = sorted(out.glob("0/*.npz"))
@@ -565,16 +617,16 @@ def phase_predict(card: str, model: str, fq: Path, counts: dict, kernel: str, pe
         raise SmokeFailure(f"{model}: shards hold {len(names)} reads ({len(set(names) & want)} of {N_READS} expected)")
     if not {24576, 32768} <= widths:
         raise SmokeFailure(f"{model}: large buckets missing from the run: widths {sorted(widths)}")
-    per_batch = per_layer * n_layer
-    if launches <= 0 or launches != per_batch * stats.batches or stats.batches != len(shards):
-        raise SmokeFailure(f"{model}: {kernel} launches {launches} != {per_batch} x {stats.batches} batches "
-                           f"({len(shards)} shards)")  # fmt: skip
+    want = {k: n * n_layer * stats.batches for k, n in per_layer.items()}
+    got = {k: launches.get(k) for k in want}
+    if got != want or not any(want.values()) or stats.batches != len(shards):
+        raise SmokeFailure(f"{model}{tag}: launches {got} != {want} ({stats.batches} batches, {len(shards)} shards)")
     print(
-        f"predict {model}: {stats.reads} reads, {stats.tokens} tokens, {stats.batches} batches, widths "
-        f"{sorted(widths)}; {kernel} launches {launches} = {per_batch} x {stats.batches} batches"
+        f"predict {model}{tag}: {stats.reads} reads, {stats.tokens} tokens, {stats.batches} batches, widths "
+        f"{sorted(widths)}; launches {got} = per layer {per_layer} x {n_layer} layers x {stats.batches} batches"
     )
     print(
-        f"predict {model} throughput on {card}: {stats.reads / stats.elapsed_s:.1f} reads/s, "
+        f"predict {model}{tag} throughput on {card}: {stats.reads / stats.elapsed_s:.1f} reads/s, "
         f"{stats.tokens / stats.elapsed_s:.0f} tokens/s ({stats.elapsed_s:.3f} s, after one warm-up batch)"
     )
     return launches
@@ -651,7 +703,8 @@ def swapped_scan(fn):
 
 
 def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain, second: tuple, bf16_control: tuple,
-                        f32_control: tuple, f32_tol: float, tie_band: float) -> None:  # fmt: skip
+                        f32_control: tuple, f32_tol: float, tie_band: float,
+                        vs_default: bool = False) -> None:  # fmt: skip
     """Re-run the widest and the fullest batch of the main path with the
     plain version of the model's kernel on the card (`swap(fn)` routes the
     model through fn), through the engine's own step, and hold the kernel's
@@ -666,7 +719,10 @@ def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain,
     reasons are at HYENA_TIE_BAND and CADUCEUS_TIE_BAND).
 
     float32, the same weights and batches at compute_dtype float32: logits
-    within f32_tol * max|logit| of the plain run.
+    within f32_tol * max|logit| of the plain run. With vs_default (a Hyena
+    mixer route other than the default), the default route's kernels run the
+    same f32 batches too and are held to the same limit: in float32 the
+    routes compute the same function.
     """
     import dataclasses
 
@@ -694,6 +750,8 @@ def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain,
     bf16_runs = ("kernel", second[0], bf16_control[0])
     agree = {name: np.zeros(4, dtype=np.int64) for name in bf16_runs}  # valid, agree, decided, decided-agree
     f32_rel = {"kernel": 0.0, second[0]: 0.0, f32_control[0]: 0.0}
+    if vs_default:
+        f32_rel["default route (kernels)"] = 0.0
     for i in picks:
         batch, shard = batches[i], np.load(shard_dir / f"0_{i}.npz")
         if not np.array_equal(shard["seq"], batch.input_ids):
@@ -725,6 +783,9 @@ def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain,
         scale32 = np.abs(ref32).max()
         f32 = {"kernel": engine32.step(ids, quals).cpu().numpy(), second[0]: run(engine32, second[1]),
                f32_control[0]: run(engine32, f32_control[1])}  # fmt: skip
+        if vs_default:
+            with route_env({}):
+                f32["default route (kernels)"] = engine32.step(ids, quals).cpu().numpy()
         for name, logits in f32.items():
             err = np.abs(logits - ref32).max()
             f32_rel[name] = max(f32_rel[name], float(err / scale32))
@@ -747,6 +808,9 @@ def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain,
         raise SmokeFailure(f"f32 logits differ from the plain version's by {f32_rel['kernel']:.3e} > {f32_tol}")
     if f32_rel[f32_control[0]] <= f32_tol:
         raise SmokeFailure(f"f32 logit limit passes the control ({f32_control[0]})")
+    if vs_default and not f32_rel["default route (kernels)"] <= f32_tol:
+        rel = f32_rel["default route (kernels)"]
+        raise SmokeFailure(f"f32 logits of the default route differ by {rel:.3e} > {f32_tol}")
 
 
 # f32 logits, Hyena kernel vs plain mixer, of max|logit| (measured: kernel 1.045e-4,
@@ -911,7 +975,7 @@ def training_batch(batch: int, width: int, seed: int) -> dict:
     return {k: torch.from_numpy(v).cuda() for k, v in (("input_ids", ids), ("input_quals", quals), ("labels", labels))}
 
 
-def train_parity(model_name: str, swap, counts: dict, kernel_launches: dict, runs: dict, control: str,
+def train_parity(model_name: str, swap, counts: Counts, kernel_launches: dict, runs: dict, control: str,
                  shapes: tuple, tol: float) -> None:  # fmt: skip
     """One forward and backward of `model_name` at compute_dtype float32,
     same random-init weights, on each batch shape: with the kernels (which
@@ -941,16 +1005,16 @@ def train_parity(model_name: str, swap, counts: dict, kernel_launches: dict, run
         grads = {}
         for name, fn in runs.items():
             model.zero_grad(set_to_none=True)
-            for k in counts:
-                counts[k] = 0
+            counts.reset()
             with swap(fn) if fn is not None else contextlib.nullcontext():
                 loss = continuous_interval_loss(model(batch["input_ids"], batch["input_quals"]), batch["labels"])
                 loss.backward()
             torch.cuda.synchronize()
-            if fn is None and counts != kernel_launches:
-                raise SmokeFailure(f"train step {batch_shape}: kernel launches {counts} != {kernel_launches}")
-            if fn is not None and any(counts.values()):
-                raise SmokeFailure(f"train step {batch_shape}: the plain run {name} launched {counts}")
+            launched = counts.read()
+            if fn is None and launched != kernel_launches:
+                raise SmokeFailure(f"train step {batch_shape}: kernel launches {launched} != {kernel_launches}")
+            if fn is not None and any(launched.values()):
+                raise SmokeFailure(f"train step {batch_shape}: the plain run {name} launched {launched}")
             grads[name] = ({k: p.grad.detach().clone() for k, p in model.named_parameters()}, loss.item())
         plain, plain_loss = grads["plain"]
         for name in worst:
@@ -982,24 +1046,26 @@ def phase_train_parity() -> None:
     kernel's tiles) dropped."""
     from deepchopper_tpu_torch.ops import mixer, scan
 
-    train_parity(HYENA, swapped_mixer, mixer.launch_counts, {"mixer_fwd": 4, "mixer_bwd": 4},
+    train_parity(HYENA, swapped_mixer, Counts(mixer), {"mixer_fwd": 4, "mixer_bwd": 4},
                  {"plain": plain_mixer(mixer.mixer_bwd_reference), "plain at 4L (autograd)": mixer_at_4l,
                   "control: convolution backward": plain_mixer(mixer_bwd_convolution)},
                  "control: convolution backward", (((61, 1024), 1), ((1, 32768), 2)), HYENA_GRAD_TOL)  # fmt: skip
-    train_parity(CADUCEUS, swapped_scan, scan.launch_counts, {"scan_fwd": 32, "scan_ckpt": 32, "scan_bwd": 32},
+    train_parity(CADUCEUS, swapped_scan, Counts(scan), {"scan_fwd": 32, "scan_ckpt": 32, "scan_bwd": 32},
                  {"plain": plain_scan(scan.scan_bwd_reference), "plain at chunk 7": plain_scan(scan.scan_bwd_reference, 7),
                   "control: carry dropped": plain_scan(scan_bwd_carry_zeroed, scan.CKPT_CHUNK)},
                  "control: carry dropped", (((16, 1024), 1), ((1, 8192), 2)), CADUCEUS_GRAD_TOL)  # fmt: skip
 
 
-def phase_train(card: str, model: str, counts: dict, per_batch: dict, extra: tuple = ()) -> dict[str, int]:
+def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: tuple = (),
+                tag: str = "") -> dict[str, int]:  # fmt: skip
     """`train` through the CLI's parser and code path on `model` at full
     width (random init, seed 0), one epoch over ~300 labelled reads with the
     benchmark's length mix, two of them forced into the 24576 and 32768
     buckets of the training split; one val pass; test on the best
     checkpoint. per_batch = {kernel: (launches per train batch, per eval
-    batch)}. Then `predict --checkpoint <best>` on a few reads. Returns the
-    kernels' launches in the train run."""
+    batch)}, (0, 0) for a kernel the route must not reach. Then `predict
+    --checkpoint <best>` on a few reads. Returns the kernels' launches in the
+    train run."""
     import csv
     import dataclasses
 
@@ -1010,7 +1076,7 @@ def phase_train(card: str, model: str, counts: dict, per_batch: dict, extra: tup
     from deepchopper_tpu_torch.data.parquet_module import DataModule, ratio_split
     from deepchopper_tpu_torch.data.synth import read_lengths, synth_labelled_fastq
 
-    work = REPO / "build" / "chip_smoke_train" / model
+    work = REPO / "build" / "chip_smoke_train" / (model + tag)
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     lengths = read_lengths(N_READS, seed=0)
@@ -1028,20 +1094,20 @@ def phase_train(card: str, model: str, counts: dict, per_batch: dict, extra: tup
     if not {24576, 32768} <= set(widths):
         raise SmokeFailure(f"large buckets missing from the training batches: widths {widths}")
 
-    for k in counts:
-        counts[k] = 0
+    counts.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(counts)
+    launches = counts.read()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
-        raise SmokeFailure(f"train {model} exited {rc}")
+        raise SmokeFailure(f"train {model}{tag} exited {rc}")
     want = {k: tr * n_train + ev * n_eval for k, (tr, ev) in per_batch.items()}
-    if launches != want or 0 in launches.values():
-        raise SmokeFailure(f"train {model} launches {launches} != {want} ({n_train} train, {n_eval} val+test batches)")
+    if launches != want or not all(launches[k] for k, n in per_batch.items() if any(n)):
+        raise SmokeFailure(f"train {model}{tag} launches {launches} != {want} ({n_train} train, "
+                           f"{n_eval} val+test batches)")  # fmt: skip
     out = work / "runs" / "train"
     rows = list(csv.DictReader(open(out / "metrics.csv")))
     if len(rows) != 1 or not all(math.isfinite(float(rows[0][k])) for k in ("train/loss", "val/loss")):
@@ -1053,7 +1119,7 @@ def phase_train(card: str, model: str, counts: dict, per_batch: dict, extra: tup
     if not math.isfinite(test["test/loss"]):
         raise SmokeFailure(f"test on best: {test}")
     print(
-        f"train {model} (CLI): {n_train} steps over widths {widths}, {tokens} padded tokens, {n_eval} val+test "
+        f"train {model}{tag} (CLI): {n_train} steps over widths {widths}, {tokens} padded tokens, {n_eval} val+test "
         f"batches, {elapsed:.1f} s with set-up and test-on-best; train/loss {float(rows[0]['train/loss']):.4f}, "
         f"val/loss {float(rows[0]['val/loss']):.4f}, test {test}"
     )
@@ -1200,6 +1266,351 @@ def phase_profile(fq: Path) -> None:
         del model, opt
 
 
+# -- Hyena's other mixer routes: gated conv, causal conv, in_proj-fused mixer -----------
+
+BF16_TENSOR_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
+ROUTE_KERNELS = ("gated_fwd", "conv_fwd", "mixer_inproj_fwd")
+ROUTE_SOURCES = {
+    "gated_fwd": ("gated_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:428, deepchopper_tpu/ops/pallas_fft.py:1484"),
+    "conv_fwd": ("conv_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:204"),
+    "mixer_inproj_fwd": ("mixer_inproj_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:1014"),
+}
+
+
+def route_inputs(kind: str, batch: int, d_model: int, seq_len: int, dtype, seed: int) -> tuple:
+    """Arguments of one call of `kind` on the card: gated_fwd (uc (B, 3D, L),
+    k_long, bias); conv_fwd (v (B, L, D) float32, k, bias); mixer_inproj_fwd
+    (x (B, D, L), w_in (3D, D), b_in, k_short, b_short, k_long, bias)."""
+    import torch
+
+    proj, k_short, b_short, k_long, bias = mixer_inputs(batch if kind == "gated_fwd" else 1, d_model, seq_len, dtype,
+                                                        seed)  # fmt: skip
+    if kind == "gated_fwd":
+        return proj, k_long, bias
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    if kind == "conv_fwd":
+        return torch.randn(batch, seq_len, d_model, generator=gen, device="cuda"), k_long, bias
+    x = torch.randn(batch, d_model, seq_len, generator=gen, device="cuda").to(dtype)
+    w_in = torch.randn(3 * d_model, d_model, generator=gen, device="cuda") / math.sqrt(d_model)
+    b_in = torch.randn(3 * d_model, generator=gen, device="cuda") * 0.1
+    return x, w_in, b_in, k_short, b_short, k_long, bias
+
+
+def route_calls(kind: str):
+    """(kernel wrapper, plain version) of `kind`."""
+    from deepchopper_tpu_torch.ops import conv, gated, inproj
+
+    return {
+        "gated_fwd": (gated.gated_fwd_cuda, gated.gated_reference),
+        "conv_fwd": (conv.conv_fwd_cuda, conv.conv_reference),
+        "mixer_inproj_fwd": (inproj.mixer_inproj_fwd_cuda, inproj.inproj_reference),
+    }[kind]
+
+
+def route_bound(kind: str, batch: int, d_model: int, seq_len: int, itemsize: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one call, as `mixer_bound` reckons the
+    mixer: each input read once, each output written once; the FFT conv's
+    f32 flops at 67 TFLOP/s. gated_fwd: mixer_bound itself (three gate
+    streams in, one out). conv_fwd: one f32 stream in, one out.
+    mixer_inproj_fwd: x in and out once plus the weight, and the in_proj
+    GEMM's 2 * 3D * D flops a token at the bf16 dense tensor-core peak
+    (989 TFLOP/s) added to the FFT's f32 time."""
+    nbytes, flops = mixer_bound(batch, d_model, seq_len, itemsize)
+    gemm = 0.0
+    filt = 4 * (seq_len * d_model + 13 * d_model)
+    if kind == "conv_fwd":
+        nbytes = batch * 2 * d_model * seq_len * 4 + filt
+    elif kind == "mixer_inproj_fwd":
+        nbytes = batch * 2 * d_model * seq_len * itemsize + 3 * d_model * d_model * itemsize + filt
+        gemm = 2 * 3 * d_model * d_model * batch * seq_len
+    return nbytes / HBM_BYTES_PER_S * 1e3, (flops / F32_FLOPS_PER_S + gemm / BF16_TENSOR_FLOPS_PER_S) * 1e3
+
+
+def phase_route_kernels() -> list[dict]:
+    """gated_fwd and mixer_inproj_fwd against their plain versions at D = 256,
+    B = 2 at every ladder width in float32 (1e-4 of max|ref|) and bfloat16
+    (1e-2); conv_fwd in float32 only (its contract). Then each at the
+    flagship batch shapes (B = 2^17 // W; gated and in_proj in bf16, conv in
+    f32), held again and timed beside its plain version and its bound; the
+    in_proj kernel also beside the composed route on the same inputs
+    (torch.matmul in_proj, then mixer_fwd.cu): whether the fusion pays."""
+    import torch
+
+    from deepchopper_tpu_torch.data.bucketing import default_buckets
+    from deepchopper_tpu_torch.ops import inproj, mixer
+
+    d_model = 256
+    widths = default_buckets(32768)
+    dtypes = {"gated_fwd": ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)), "conv_fwd": ((torch.float32, 1e-4),),
+              "mixer_inproj_fwd": ((torch.float32, 1e-4), (torch.bfloat16, 1e-2))}  # fmt: skip
+    print("gated_fwd, conv_fwd, mixer_inproj_fwd vs plain at D=256, B=2 (max-abs err, of max|ref|):")
+    for seq_len in widths:
+        line = f"  L={seq_len:6d}"
+        for kind in ROUTE_KERNELS:
+            kernel, plain = route_calls(kind)
+            for dtype, tol in dtypes[kind]:
+                args = route_inputs(kind, 2, d_model, seq_len, dtype, seed=seq_len)
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                err, rel = within(got, plain(*args), tol, f"{kind} B=2 L={seq_len} {dtype}")
+                line += f"  {kind} {str(dtype)[6:]} {err:.1e} ({rel:.1e})"
+        print(line)
+
+    print("at flagship batch shapes (B = 2^17 // W, D = 256; gated and in_proj bf16, conv f32):")
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+            for k in ROUTE_KERNELS}  # fmt: skip
+    composed_total = 0.0
+    for seq_len in widths:
+        batch = TOKENS_PER_BATCH // seq_len
+        line = f"  W={seq_len:6d} B={batch:4d}"
+        for kind in ROUTE_KERNELS:
+            kernel, plain = route_calls(kind)
+            dtype, tol = (torch.float32, 1e-4) if kind == "conv_fwd" else (torch.bfloat16, 1e-2)
+            args = route_inputs(kind, batch, d_model, seq_len, dtype, seed=seq_len + 1)
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            err, _rel = within(got, plain(*args), tol, f"{kind} B={batch} L={seq_len} {dtype}")
+            del got
+            ms = time_ms(lambda: kernel(*args))
+            plain_ms = time_ms(lambda: plain(*args), reps=3)
+            bytes_ms, ops_ms = route_bound(kind, batch, d_model, seq_len, 4 if dtype == torch.float32 else 2)
+            bound = max(bytes_ms, ops_ms)
+            row = rows[kind]
+            row["err"] = max(row["err"], err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                           ("bound_ms", bound)):  # fmt: skip
+                row[key] += v
+            by = "bytes" if bytes_ms >= ops_ms else "ops"
+            line += f" | {kind} {ms:.3f} plain {plain_ms:.3f} bound {bound:.3f} ({by})"
+            if kind == "mixer_inproj_fwd":
+                x, w_in, b_in, *mix = args
+                composed = time_ms(lambda: mixer.mixer_fwd_cuda(inproj.projection_composed(x, w_in, b_in), *mix))
+                composed_total += composed
+                line += f" composed {composed:.3f}"
+            del args
+        print(line)
+    out = []
+    for kind, row in rows.items():
+        print(f"  {kind} ladder total: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms (bytes {row['bytes_ms']:.3f}, ops {row['ops_ms']:.3f})")  # fmt: skip
+        source, replaces = ROUTE_SOURCES[kind]
+        out.append({
+            "name": kind, "route": "cuda", "source": f"deepchopper_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": None, "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
+            "library_ms": None,
+        })  # fmt: skip
+    print(f"  composed in_proj route (torch.matmul in_proj + mixer_fwd.cu) ladder total: {composed_total:.3f} ms, "
+          f"in_proj-fused kernel {rows['mixer_inproj_fwd']['ms']:.3f} ms")  # fmt: skip
+    return out
+
+
+def phase_conv_op() -> int:
+    """The causal conv's own path: the public op `models.hyena.causal_conv`
+    (no model route reaches it, as in the JAX package) at every ladder width
+    at the flagship shapes (B = 2^17 // W, D = 256, float32), counts reset
+    just before; finite (B, L, D) float32 outputs, one conv_fwd launch a
+    width. Returns the launches."""
+    import torch
+
+    from deepchopper_tpu_torch.data.bucketing import default_buckets
+    from deepchopper_tpu_torch.models import hyena
+    from deepchopper_tpu_torch.ops import conv
+
+    widths = default_buckets(32768)
+    inputs = [route_inputs("conv_fwd", TOKENS_PER_BATCH // w, 256, w, torch.float32, seed=w + 5) for w in widths]
+    counts = Counts(conv)
+    counts.reset()
+    outs = [hyena.causal_conv(*args) for args in inputs]
+    torch.cuda.synchronize()
+    launches = counts.read()["conv_fwd"]
+    for args, y in zip(inputs, outs):
+        if y.shape != args[0].shape or y.dtype != torch.float32 or not torch.isfinite(y).all():
+            raise SmokeFailure(f"causal_conv at {tuple(args[0].shape)}: {tuple(y.shape)} {y.dtype}")
+    if launches != len(widths):
+        raise SmokeFailure(f"causal_conv: conv_fwd launches {launches} != {len(widths)} widths")
+    print(f"causal_conv over the ladder at 2^17 tokens a width: conv_fwd launches {launches}, finite outputs")
+    return launches
+
+
+def gated_at_4l(uc, k_long, bias):
+    """The plain gated conv with its FFT at 4L: a second correct version."""
+    import torch.nn.functional as F
+
+    from deepchopper_tpu_torch.ops import gated
+
+    seq_len = uc.shape[2]
+    return gated.gated_reference(F.pad(uc, (0, seq_len)), F.pad(k_long, (0, 0, 0, seq_len)), bias)[..., :seq_len]
+
+
+def gated_filter_reversed(uc, k_long, bias):
+    """A faulty gated conv: the long filter reversed in time."""
+    from deepchopper_tpu_torch.ops import gated
+
+    return gated.gated_reference(uc, k_long.flip(0), bias)
+
+
+def gated_bf16_io(uc, k_long, bias):
+    """A lower-precision gated conv: input and output rounded to bfloat16."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import gated
+
+    return gated.gated_reference(uc.to(torch.bfloat16), k_long, bias).to(uc.dtype)
+
+
+def inproj_at_4l(x, w_in, b_in, k_short, b_short, k_long, bias):
+    """The plain in_proj-fused mixer with its FFT at 4L (zeros appended to x
+    change nothing before them: every step after in_proj is causal)."""
+    import torch.nn.functional as F
+
+    from deepchopper_tpu_torch.ops import inproj
+
+    seq_len = x.shape[2]
+    out = inproj.inproj_reference(F.pad(x, (0, seq_len)), w_in, b_in, k_short, b_short,
+                                  F.pad(k_long, (0, 0, 0, seq_len)), bias)  # fmt: skip
+    return out[..., :seq_len]
+
+
+def inproj_taps_reversed(x, w_in, b_in, k_short, b_short, k_long, bias):
+    """A faulty in_proj-fused mixer: the short conv's taps in the wrong order."""
+    from deepchopper_tpu_torch.ops import inproj
+
+    return inproj.inproj_reference(x, w_in, b_in, k_short.flip(0), b_short, k_long, bias)
+
+
+def inproj_bf16_io(x, w_in, b_in, k_short, b_short, k_long, bias):
+    """A lower-precision in_proj-fused mixer: x, w_in and the output in bfloat16."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import inproj
+
+    return inproj.inproj_reference(x.to(torch.bfloat16), w_in, b_in, k_short, b_short, k_long, bias).to(x.dtype)
+
+
+def swapped_gated(fn):
+    from deepchopper_tpu_torch.models import hyena
+
+    return swapped(hyena, "gated_fft_conv_bm", fn)
+
+
+def swapped_inproj(fn):
+    from deepchopper_tpu_torch.models import hyena
+
+    return swapped(hyena, "mixer_fft_conv_inproj", fn)
+
+
+def check_unfused_against_plain(fq: Path, shard_dir: Path) -> None:
+    """The unfused route (DEEPCHOPPER_FUSE_SHORT=0): gated_fwd vs the plain
+    gated conv. Controls: the long filter reversed (bf16 rule); bf16 input
+    and output (f32 limit). Second correct version: the plain one at 4L.
+    Also the default route's f32 logits on the same batches."""
+    from deepchopper_tpu_torch.ops import gated
+
+    check_against_plain(fq, shard_dir, "rna002", swapped_gated, gated.gated_reference, ("plain at 4L", gated_at_4l),
+                        ("control: filter reversed", gated_filter_reversed), ("control: bf16 I/O", gated_bf16_io),
+                        HYENA_F32_LOGIT_TOL, HYENA_TIE_BAND, vs_default=True)  # fmt: skip
+
+
+def check_inproj_against_plain(fq: Path, shard_dir: Path) -> None:
+    """The in_proj-fused route (DEEPCHOPPER_FUSE_INPROJ=1):
+    mixer_inproj_fwd vs the plain in_proj-fused mixer. Controls: the short
+    conv's taps reversed (bf16 rule); bf16 input and output (f32 limit).
+    Second correct version: the plain one at 4L. Also the default route's
+    f32 logits on the same batches."""
+    from deepchopper_tpu_torch.ops import inproj
+
+    check_against_plain(fq, shard_dir, "rna002", swapped_inproj, inproj.inproj_reference, ("plain at 4L", inproj_at_4l),
+                        ("control: taps reversed", inproj_taps_reversed), ("control: bf16 I/O", inproj_bf16_io),
+                        HYENA_F32_LOGIT_TOL, HYENA_TIE_BAND, vs_default=True)  # fmt: skip
+
+
+def plain_gated(bwd):
+    """A differentiable gated conv that runs the plain forward and the given
+    plain backward, to swap into every HyenaOperator on the unfused route."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import gated
+
+    class PlainGated(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, uc, k_long, bias):
+            ctx.save_for_backward(uc, k_long, bias)
+            return gated.gated_reference(uc, k_long, bias)
+
+        @staticmethod
+        def backward(ctx, dy):
+            uc, k_long, bias = ctx.saved_tensors
+            return bwd(uc, dy, k_long, bias)
+
+    return PlainGated.apply
+
+
+def gated_bwd_convolution(uc, dy, k_long, bias):
+    """A faulty gated backward: dw convolves dz with the filter where the
+    correlation (conj of its spectrum) belongs; otherwise the plain one."""
+    import torch
+
+    d_model, seq_len = k_long.shape[1], uc.shape[2]
+    n = 2 * seq_len
+    x2, x1, v = (uc[:, i * d_model : (i + 1) * d_model].float() for i in range(3))
+    dy32, b = dy.float(), bias.float()[:, None]
+    w = v * x1
+    k_f = torch.fft.rfft(k_long.float().T, n=n, dim=-1)
+    w_f = torch.fft.rfft(w, n=n, dim=-1)
+    z = torch.fft.irfft(w_f * k_f, n=n, dim=-1)[..., :seq_len] + w * b
+    dz = dy32 * x2
+    dz_f = torch.fft.rfft(dz, n=n, dim=-1)
+    dw = torch.fft.irfft(dz_f * k_f, n=n, dim=-1)[..., :seq_len] + dz * b
+    dk = torch.fft.irfft((dz_f * w_f.conj()).sum(dim=0), n=n, dim=-1)[..., :seq_len]
+    duc = torch.cat([dy32 * z, dw * v, dw * x1], dim=1).to(uc.dtype)
+    return duc, dk.T.to(k_long.dtype), (dz * w).sum(dim=(0, 2)).to(bias.dtype)
+
+
+def plain_inproj(mixer_bwd):
+    """A differentiable in_proj-fused mixer that runs the plain forward and
+    the in_proj backward over the given plain mixer backward, to swap into
+    every HyenaOperator on the in_proj route."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import inproj
+
+    class PlainInproj(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return inproj.inproj_reference(*args)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, *params = ctx.saved_tensors
+            return inproj.inproj_bwd(x, dy.to(x.dtype), *params, mixer_bwd=mixer_bwd)
+
+    return PlainInproj.apply
+
+
+def phase_route_train_parity() -> None:
+    """Hyena on its unfused and in_proj-fused routes, on a (61, 1024) and a
+    (1, 32768) batch, as phase_train_parity: kernels vs the plain versions
+    (unfused: gated_reference + gated_bwd_reference; in_proj:
+    inproj_reference + the in_proj backward over mixer_bwd_reference);
+    printed beside them, autograd of the plain version at 4L; controls: the
+    plain backward with the filter's spectrum in place of its conjugate."""
+    from deepchopper_tpu_torch.ops import gated, inproj, mixer
+
+    shapes = (((61, 1024), 1), ((1, 32768), 2))
+    control = "control: convolution backward"
+    with route_env(UNFUSED):
+        train_parity(HYENA, swapped_gated, Counts(mixer, gated), {"mixer_fwd": 0, "mixer_bwd": 0, "gated_fwd": 4},
+                     {"plain": plain_gated(gated.gated_bwd_reference), "plain at 4L (autograd)": gated_at_4l,
+                      control: plain_gated(gated_bwd_convolution)}, control, shapes, HYENA_GRAD_TOL)  # fmt: skip
+    with route_env(INPROJ):
+        train_parity(HYENA, swapped_inproj, Counts(mixer, inproj), {"mixer_fwd": 0, "mixer_bwd": 4,
+                     "mixer_inproj_fwd": 4}, {"plain": plain_inproj(mixer.mixer_bwd_reference),
+                     "plain at 4L (autograd)": inproj_at_4l, control: plain_inproj(mixer_bwd_convolution)},
+                     control, shapes, HYENA_GRAD_TOL)  # fmt: skip
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="Also profile predict and the train step (device time by kernel)")
@@ -1221,7 +1632,7 @@ def main() -> int:
     print(f"gpu: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     try:
-        from deepchopper_tpu_torch.ops import _build, mixer, scan
+        from deepchopper_tpu_torch.ops import _build, gated, inproj, mixer, scan
 
         t0 = time.perf_counter()
         built = _build.build_all()
@@ -1229,19 +1640,37 @@ def main() -> int:
         fwd = timed(phase_kernels)
         bwd = timed(phase_bwd_kernel)
         scan_rows = timed(phase_scan_kernels)
+        gated_row, conv_row, inproj_row = timed(phase_route_kernels)
+        conv_row["launches"] = timed(phase_conv_op)
         work = REPO / "build" / "chip_smoke"
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
         fq = bench_reads(work)
-        timed(phase_predict, card, HYENA, fq, mixer.launch_counts, "mixer_fwd", 1)
+        timed(phase_predict, card, HYENA, fq, Counts(mixer), {"mixer_fwd": 1})
         timed(check_hyena_against_plain, fq, work / HYENA / "out" / "0")
-        timed(phase_predict, card, CADUCEUS, fq, scan.launch_counts, "scan_fwd", 2)
+        with route_env(UNFUSED):
+            timed(phase_predict, card, HYENA, fq, Counts(mixer, gated), {"gated_fwd": 1, "mixer_fwd": 0}, "-unfused")
+            timed(check_unfused_against_plain, fq, work / f"{HYENA}-unfused" / "out" / "0")
+        with route_env(INPROJ):
+            timed(phase_predict, card, HYENA, fq, Counts(mixer, inproj), {"mixer_inproj_fwd": 1, "mixer_fwd": 0},
+                  "-inproj")  # fmt: skip
+            timed(check_inproj_against_plain, fq, work / f"{HYENA}-inproj" / "out" / "0")
+        timed(phase_predict, card, CADUCEUS, fq, Counts(scan), {"scan_fwd": 2})
         timed(check_caduceus_against_plain, fq, work / CADUCEUS / "out" / "0")
         timed(phase_train_parity)
-        launches = timed(phase_train, card, HYENA, mixer.launch_counts, {"mixer_fwd": (4, 4), "mixer_bwd": (4, 0)})
+        timed(phase_route_train_parity)
+        launches = timed(phase_train, card, HYENA, Counts(mixer), {"mixer_fwd": (4, 4), "mixer_bwd": (4, 0)})
         fwd["launches"], bwd["launches"] = launches["mixer_fwd"], launches["mixer_bwd"]
+        with route_env(UNFUSED):
+            per_batch = {"gated_fwd": (4, 4), "mixer_fwd": (0, 0), "mixer_bwd": (0, 0)}
+            launches = timed(phase_train, card, HYENA, Counts(mixer, gated), per_batch, (), "-unfused")
+        gated_row["launches"] = launches["gated_fwd"]
+        with route_env(INPROJ):
+            per_batch = {"mixer_inproj_fwd": (4, 4), "mixer_bwd": (4, 0), "mixer_fwd": (0, 0)}
+            launches = timed(phase_train, card, HYENA, Counts(mixer, inproj), per_batch, (), "-inproj")
+        inproj_row["launches"] = launches["mixer_inproj_fwd"]
         per_batch = {"scan_fwd": (32, 32), "scan_ckpt": (32, 0), "scan_bwd": (32, 0)}
-        launches = timed(phase_train, card, CADUCEUS, scan.launch_counts, per_batch,
+        launches = timed(phase_train, card, CADUCEUS, Counts(scan), per_batch,
                          (f"data.tokens_per_batch={CADUCEUS_TRAIN_TOKENS}",))  # fmt: skip
         for row in scan_rows:
             row["launches"] = launches[row["name"]]
@@ -1254,7 +1683,7 @@ def main() -> int:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
     print(gpu_line())
-    print(json.dumps({"kernels": [fwd, bwd, *scan_rows]}))
+    print(json.dumps({"kernels": [fwd, bwd, *scan_rows, gated_row, conv_row, inproj_row]}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))
     return 0

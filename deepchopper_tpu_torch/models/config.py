@@ -3,8 +3,11 @@
 Copy of the Hyena and Caduceus parts of `deepchopper_tpu/models/config.py`.
 Field names and defaults are the JAX configs', so a config converts field by
 field. Two JAX fields are left out, each because the port has a single
-implementation per device: Hyena's `conv_impl` (the long conv is
-`ops/mixer.py`) and Caduceus's `scan_chunk` (the scan is `ops/scan.py`).
+implementation per device: Hyena's `conv_impl` (the long conv is `ops/mixer.py`,
+`ops/gated.py` or `ops/inproj.py`, by the mixer route that the environment
+variables DEEPCHOPPER_FUSE_SHORT and DEEPCHOPPER_FUSE_INPROJ and d_model pick,
+as in the JAX package: `models/hyena.py:mixer_route`) and Caduceus's
+`scan_chunk` (the scan is `ops/scan.py`).
 """
 
 from __future__ import annotations

@@ -9,18 +9,35 @@ transpose. Parameter names follow the flax tree (`block_0.mixer.in_proj`,
 
 Numerics follow the JAX package: matmuls and the residual stream in
 `compute_dtype`, LayerNorm statistics in float32 with E[x^2] - E[x]^2, the
-tanh GELU, and the mixer's short conv, gates and FFT in float32.
+tanh GELU, and the mixer's gates and FFT in float32.
+
+The mixer takes one of three routes, chosen where and as the JAX package
+chooses them (`HyenaOperator` there, `models/hyena.py:339-386`), from two
+environment variables read at every forward (`mixer_route`):
+- fused (default): in_proj, then `ops.mixer` (short conv, gates and long conv
+  in one kernel; the short conv in float32);
+- unfused, with `DEEPCHOPPER_FUSE_SHORT=0` or when d_model % 8 != 0: in_proj,
+  `short_depthwise_conv_cf` in `compute_dtype`, then `ops.gated`;
+- in_proj-fused, with `DEEPCHOPPER_FUSE_INPROJ=1` on the fused route:
+  `ops.inproj` (in_proj inside the mixer kernel).
+In float32 the three compute the same function. The JAX package's other two
+mixer knobs, `DEEPCHOPPER_MIXER_BM` and `DEEPCHOPPER_FFT_LAYOUT`, pick TPU
+block layouts of the same math; the port has one layout and reads neither.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import fft_causal_conv
+from ..ops.gated import gated_fft_conv_bm
+from ..ops.inproj import mixer_fft_conv_inproj
 from ..ops.mixer import mixer_fft_conv_bm
 from .config import HyenaConfig
 
@@ -139,9 +156,48 @@ class HyenaFilter(nn.Module):
         return h, bias
 
 
+def causal_conv(v: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Causal long conv y = (v * k)[:L] + v * bias: v (B, L, D), k (L, D),
+    bias (D,) -> (B, L, D) float32 (`ops.conv`). The JAX package's `impl`
+    argument picks among TPU implementations; the port has one per device.
+    No model route calls it, as in the JAX package."""
+    return fft_causal_conv(v.float(), k, bias)
+
+
+def short_depthwise_conv_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal short conv on a channel-first stream, in x's dtype:
+    x (B, W, L), kernel (taps, 1, W), bias (W,); tap t multiplies
+    x[n - (taps-1-t)], zero for n < 0. The taps and bias are cast to x's
+    dtype first, as `short_depthwise_conv_cm` casts them."""
+    taps = kernel.shape[0]
+    seq_len = x.shape[2]
+    ks = kernel.to(x.dtype)
+    xp = F.pad(x, (taps - 1, 0))
+    out = xp[:, :, 0:seq_len] * ks[0, 0][:, None]
+    for t in range(1, taps):
+        out = out + xp[:, :, t : t + seq_len] * ks[t, 0][:, None]
+    return out + bias.to(x.dtype)[:, None]
+
+
+def gated_causal_conv(uc: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Gate -> causal long conv -> gate on a short-convolved (B, 3D, L)
+    stream [x2 | x1 | v] -> (B, D, L) in uc's dtype (`ops.gated`)."""
+    return gated_fft_conv_bm(uc, k, bias)
+
+
+def mixer_route(d_model: int) -> str:
+    """The mixer route the JAX package would take for this width and
+    environment: "fused", "unfused" or "inproj" (module docstring)."""
+    if os.environ.get("DEEPCHOPPER_FUSE_SHORT", "1") != "1" or d_model % 8 != 0:
+        return "unfused"
+    if os.environ.get("DEEPCHOPPER_FUSE_INPROJ", "0") == "1":
+        return "inproj"
+    return "fused"
+
+
 class HyenaOperator(nn.Module):
-    """Order-2 Hyena mixer: in_proj -> fused short conv/gate/long conv/gate
-    -> out_proj, on a (B, D, L) stream."""
+    """Order-2 Hyena mixer: in_proj -> short conv/gate/long conv/gate ->
+    out_proj, on a (B, D, L) stream, by the route `mixer_route` picks."""
 
     def __init__(self, cfg: HyenaConfig):
         super().__init__()
@@ -165,8 +221,17 @@ class HyenaOperator(nn.Module):
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         dtype = getattr(torch, self.cfg.compute_dtype)
         k_long, bias = self.filter_fn(u.shape[2])
-        proj = dense_cf(self.in_proj, u, dtype)  # (B, 3D, L)
-        y = mixer_fft_conv_bm(proj, self.short_filter_kernel, self.short_filter_bias, k_long, bias)
+        k_short, b_short = self.short_filter_kernel, self.short_filter_bias
+        route = mixer_route(self.cfg.d_model)
+        if route == "inproj":
+            w_in, b_in = self.in_proj.weight, self.in_proj.bias
+            y = mixer_fft_conv_inproj(u.to(dtype), w_in, b_in, k_short, b_short, k_long, bias)
+        else:
+            proj = dense_cf(self.in_proj, u, dtype)  # (B, 3D, L)
+            if route == "fused":
+                y = mixer_fft_conv_bm(proj, k_short, b_short, k_long, bias)
+            else:
+                y = gated_causal_conv(short_depthwise_conv_cf(proj, k_short, b_short), k_long, bias)
         return dense_cf(self.out_proj, y, dtype)
 
 

@@ -23,7 +23,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )  # fmt: skip
-SOURCES = ("mixer_fwd.cu", "mixer_bwd.cu", "scan_fwd.cu", "scan_bwd.cu")
+SOURCES = (
+    "mixer_fwd.cu", "mixer_bwd.cu", "scan_fwd.cu", "scan_bwd.cu",
+    "gated_fwd.cu", "conv_fwd.cu", "mixer_inproj_fwd.cu",
+)  # fmt: skip
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -75,6 +75,10 @@ def mixer_reference(
     return (z * x2).to(proj_bm.dtype)
 
 
+# The widest L the FFT kernels take: their largest transform is N = 65536.
+MAX_SEQ_LEN = 32768
+
+
 def fft_size(seq_len: int) -> int:
     """The kernel's transform length: the power of two >= 2L (at least 8)."""
     return max(8, 1 << (2 * seq_len - 1).bit_length())

@@ -178,3 +178,131 @@ def test_scan_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):
             scan.scan_fwd_cuda(*args)
             pytest.fail(why)
+
+
+# -- gated conv, causal conv, in_proj-fused mixer (Hyena's other routes) -----------
+
+
+def _gated_inputs(batch, d_model, seq_len, dtype, device, seed=0):
+    proj, k_short, b_short, k_long, bias = _inputs(batch, d_model, seq_len, torch.float32, device, seed)
+    from deepchopper_tpu_torch.models.hyena import short_depthwise_conv_cf
+
+    return short_depthwise_conv_cf(proj, k_short, b_short).to(dtype), k_long, bias
+
+
+def _inproj_inputs(batch, d_model, seq_len, dtype, device, seed=0):
+    rng = np.random.default_rng(seed + 11)
+    x = torch.from_numpy(rng.standard_normal((batch, d_model, seq_len)).astype(np.float32)).to(device, dtype)
+    w_in = torch.from_numpy((rng.standard_normal((3 * d_model, d_model)) / np.sqrt(d_model)).astype(np.float32))
+    b_in = torch.from_numpy((rng.standard_normal(3 * d_model) * 0.1).astype(np.float32))
+    _proj, k_short, b_short, k_long, bias = _inputs(1, d_model, seq_len, torch.float32, device, seed)
+    return x, w_in.to(device), b_in.to(device), k_short, b_short, k_long, bias
+
+
+def _within(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+# 256..16384 run the shared-memory branch, 24576 and 32768 the global-scratch
+# branch; 300 and 1000 are off-ladder widths (odd half-lengths).
+ROUTE_WIDTHS = [256, 300, 1000, 1280, 16384, 24576, 32768]
+
+
+@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_gated_kernel_matches_plain(cuda, seq_len, dtype, tol):
+    from deepchopper_tpu_torch.ops import gated
+
+    args = _gated_inputs(2, 8, seq_len, dtype, cuda, seed=seq_len)
+    gated.reset_launch_counts()
+    got = gated.gated_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert gated.launch_counts["gated_fwd"] == 1
+    _within(got, gated.gated_reference(*args), tol)
+
+
+@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS)
+def test_conv_kernel_matches_plain(cuda, seq_len):
+    from deepchopper_tpu_torch.ops import conv
+
+    _proj, _ks, _bs, k_long, bias = _inputs(1, 8, seq_len, torch.float32, cuda, seed=seq_len)
+    v = torch.from_numpy(np.random.default_rng(seq_len).standard_normal((3, seq_len, 8)).astype(np.float32)).to(cuda)
+    conv.reset_launch_counts()
+    got = conv.conv_fwd_cuda(v, k_long, bias)
+    torch.cuda.synchronize()
+    assert conv.launch_counts["conv_fwd"] == 1
+    _within(got, conv.conv_reference(v, k_long, bias), 1e-4)
+
+
+@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_inproj_kernel_matches_plain(cuda, seq_len, dtype, tol):
+    from deepchopper_tpu_torch.ops import inproj
+
+    args = _inproj_inputs(2, 16, seq_len, dtype, cuda, seed=seq_len)
+    inproj.reset_launch_counts()
+    got = inproj.mixer_inproj_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert inproj.launch_counts["mixer_inproj_fwd"] == 1
+    _within(got, inproj.inproj_reference(*args), tol)
+
+
+def _grads(fn, args, dy):
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    out = fn(*leaves)
+    out.backward(dy)
+    return out, [t.grad for t in leaves]
+
+
+def test_gradients_through_the_route_functions_on_the_card(cuda):
+    from deepchopper_tpu_torch.ops import conv, gated, inproj
+
+    cases = {
+        "gated": (gated, gated.gated_fft_conv_bm, gated.gated_reference, _gated_inputs(2, 16, 1000, torch.float32, cuda, 5),
+                  {"gated_fwd": 1}),
+        "conv": (conv, conv.fft_causal_conv, conv.conv_reference,
+                 (torch.randn(2, 1000, 16, device=cuda), *_inputs(1, 16, 1000, torch.float32, cuda, 5)[3:]),
+                 {"conv_fwd": 1}),
+        "inproj": (inproj, inproj.mixer_fft_conv_inproj, inproj.inproj_reference,
+                   _inproj_inputs(2, 16, 1000, torch.float32, cuda, 5), {"mixer_inproj_fwd": 1}),
+    }  # fmt: skip
+    for name, (module, fn, plain, args, launches) in cases.items():
+        module.reset_launch_counts()
+        mixer.reset_launch_counts()
+        dy = torch.randn_like(plain(*args))
+        out, got = _grads(fn, args, dy)
+        torch.cuda.synchronize()
+        assert out.grad_fn is not None, name
+        assert module.launch_counts == launches, name
+        # The in_proj route's backward runs the mixer backward kernel.
+        assert mixer.launch_counts == {"mixer_fwd": 0, "mixer_bwd": int(name == "inproj")}, name
+        _, want = _grads(plain, args, dy)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item(), (name, i)
+
+
+def test_route_kernels_refuse_what_they_do_not_take(cuda):
+    from deepchopper_tpu_torch.ops import conv, gated, inproj
+
+    uc, k_long, bias = _gated_inputs(1, 8, 256, torch.float32, cuda)
+    x, w_in, b_in, ks, bs, kl, b = _inproj_inputs(1, 8, 256, torch.float32, cuda)
+    v = torch.randn(1, 256, 8, device=cuda)
+    bad = {
+        "gated: width not 3D": lambda: gated.gated_fwd_cuda(uc[:, :20], k_long, bias),
+        "gated: float16": lambda: gated.gated_fwd_cuda(uc.half(), k_long, bias),
+        "gated: k_long on the CPU": lambda: gated.gated_fwd_cuda(uc, k_long.cpu(), bias),
+        "gated: L beyond 32768": lambda: gated.gated_fwd_cuda(
+            torch.zeros(1, 3, 40000, device=cuda), torch.zeros(40000, 1, device=cuda), torch.zeros(1, device=cuda)),
+        "conv: bfloat16": lambda: conv.conv_fwd_cuda(v.bfloat16(), k_long, bias),
+        "conv: k of another width": lambda: conv.conv_fwd_cuda(v, k_long[:100], bias),
+        "inproj: flax-layout weight": lambda: inproj.mixer_inproj_fwd_cuda(x, w_in.T.contiguous(), b_in, ks, bs, kl,
+                                                                          b),
+        "inproj: 4 taps": lambda: inproj.mixer_inproj_fwd_cuda(x, w_in, b_in, torch.cat([ks, ks[:1]]), bs, kl, b),
+        "inproj: float16": lambda: inproj.mixer_inproj_fwd_cuda(x.half(), w_in, b_in, ks, bs, kl, b),
+    }  # fmt: skip
+    for why, call in bad.items():
+        with pytest.raises(ValueError):
+            call()
+            pytest.fail(why)
