@@ -3,9 +3,13 @@
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
-1. Prints the card's name and power limit, builds every CUDA kernel of the
-   predict and train paths from `deepchopper_tpu_torch/csrc` with nvcc
-   (sm_90a), all nvcc processes started together.
+1. Prints the card's name and power limit, and runs `runtime_setup` on a
+   fresh flagship engine: it builds every CUDA kernel of the predict and
+   train paths from `deepchopper_tpu_torch/csrc` with nvcc (sm_90a), all nvcc
+   processes started together, loads each library and launches the setup
+   kernel (`csrc/setup.cu`, x + 1 on an (8, 128) tile) once. Prints setup_s
+   and its build seconds, holds the setup kernel to x + 1 exactly and times
+   it beside `torch.add`.
 2. Holds each kernel to its plain PyTorch version on the card, at every one
    of the 17 bucket widths:
    - the fused Hyena mixer at D = 256, B = 2, and its backward at D = 256,
@@ -46,6 +50,14 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    never; DEEPCHOPPER_FUSE_INPROJ=1: mixer_inproj_fwd once a layer), and
    each route other than the default is also held, in f32, to the default
    route's logits on the same batches.
+   Then the north-star main path, `predict --fused-chop --random-init` on
+   hyenadna-small-32k-seqlen over the same reads (phase_fused): the native
+   host plane must run, mixer_fwd once a layer per batch and the setup
+   kernel once; the chopped FASTQ must equal, byte for byte after
+   decompression and under the same name, the two-phase path's (`predict
+   --shard-format npz`, then `chop`; and through `pt`), and a control with
+   one read's labels flipped must differ. Prints reads/s, tokens/s, setup_s
+   and the stage breakdown.
 4. Train-step parity, each model and Hyena route: one float32 forward and
    backward with the kernels and with the plain version swapped in; every
    gradient leaf within a limit of its max, and a faulty backward must fail
@@ -62,7 +74,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 6. With `--profile`, profiles one more pass of predict and three train
    steps of each model: device time by kernel and the device's busy share.
 7. Prints the kernel table as one JSON line (launches from the train runs;
-   conv_fwd's from its op's run) and, last, the contract line.
+   conv_fwd's from its op's run; setup's from the fused run) and, last, the
+   contract line.
 
 Any failed phase exits non-zero without the contract line. Without CUDA, or
 outside a checkout of the repository, it exits non-zero at once.
@@ -1611,6 +1624,170 @@ def phase_route_train_parity() -> None:
                      control, shapes, HYENA_GRAD_TOL)  # fmt: skip
 
 
+# -- runtime setup and the fused predict+chop main path -------------------------------
+
+SETUP_REPS = 2000
+
+
+def phase_setup() -> dict:
+    """`PredictEngine.runtime_setup` on a fresh flagship engine: it builds every
+    source of `ops/_build.SOURCES` (all nvcc processes started together),
+    loads each library, launches `csrc/setup.cu` once and checks x + 1
+    exactly; a second call must return 0.0 and launch nothing. Then the kernel
+    against its plain version (equal exactly) and both timed, in µs a launch
+    over SETUP_REPS back-to-back launches, beside the library call `torch.add`
+    and the bound (8 KB moved: 2.4 ns at 3.35 TB/s)."""
+    import torch
+
+    from deepchopper_tpu_torch.infer.engine import PredictEngine
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+    from deepchopper_tpu_torch.ops import _build, setup
+
+    engine = PredictEngine(DeepChopper.new(HYENA), device="cuda")
+    setup.reset_launch_counts()
+    seconds = engine.runtime_setup()
+    again = engine.runtime_setup()
+    launches = setup.launch_counts["setup"]
+    if not seconds > 0 or again != 0.0 or launches != 1 or engine.stats.elapsed_s != 0.0:
+        raise SmokeFailure(f"runtime_setup: {seconds} s, repeat {again} s, {launches} launches")
+    print(f"runtime_setup: setup_s {seconds:.3f} s, of which building {engine.stats.build_s:.3f} s "
+          f"({len(_build.SOURCES)} sources: {', '.join(_build.SOURCES)}); one launch; a repeat call returns {again}")  # fmt: skip
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(setup.SHAPE, generator=gen, device="cuda")
+    got = setup.setup_tile(x)
+    if not torch.equal(got, setup.setup_reference(x)):
+        raise SmokeFailure(f"setup kernel: max-abs err {(got - setup.setup_reference(x)).abs().max().item():.3e}")
+    ms = time_ms(lambda: setup.setup_tile(x), reps=SETUP_REPS, warmup=20)
+    plain_ms = time_ms(lambda: setup.setup_reference(x), reps=SETUP_REPS, warmup=20)
+    library_ms = time_ms(lambda: torch.add(x, 1.0), reps=SETUP_REPS, warmup=20)
+    nbytes = 2 * x.numel() * 4
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, x.numel() / F32_FLOPS_PER_S * 1e3
+    print(f"setup kernel (8, 128) f32: equal to x + 1; {ms * 1e3:.3f} µs a launch, plain (x + 1.0) "
+          f"{plain_ms * 1e3:.3f} µs, torch.add {library_ms * 1e3:.3f} µs, bound {bytes_ms * 1e6:.3f} ns (bytes)")  # fmt: skip
+    return {
+        "name": "setup", "route": "cuda", "source": "deepchopper_tpu_torch/csrc/setup.cu",
+        "replaces": "deepchopper_tpu/infer/engine.py:336", "launches": None, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }  # fmt: skip
+
+
+NATIVE_CALLS = ("fq_index", "encode_spans_batch", "majority_vote_batch", "label_regions", "chop_records",
+                "bgzf_compress")  # fmt: skip
+
+
+def _gunzip(path: Path) -> bytes:
+    import gzip
+
+    with gzip.open(path, "rb") as fh:
+        return fh.read()
+
+
+def _chopped(cwd: Path) -> Path:
+    found = sorted(cwd.glob("*.chop.fq.gz"))
+    if len(found) != 1:
+        raise SmokeFailure(f"{cwd}: expected one chopped FASTQ, found {[p.name for p in found]}")
+    return found[0]
+
+
+def one_read_flipped(predicts: dict, name: str) -> dict:
+    """Control: the labels of read `name` (untruncated, longer than
+    `min_read_len`) set to the opposite outcome: all 0 (a passthrough) if the
+    chop cut it, else all 1 (one interval from base 1 to the end: cut). It
+    changes that read's output whatever its labels, where a shift of the
+    labels by a base changes nothing in a read that smoothing makes one long
+    interval."""
+    import dataclasses
+
+    import numpy as np
+
+    from deepchopper_tpu_torch.chop import ChopOptions
+
+    p = predicts[name]
+    opts = ChopOptions()
+    intervals = p.smooth_and_select_intervals(opts.smooth_window_size, opts.min_interval_size,
+                                              opts.approved_interval_number)  # fmt: skip
+    chopped = 0 < len(intervals) <= opts.max_process_intervals
+    flipped = np.full_like(p.prediction, 0 if chopped else 1)
+    return {**predicts, name: dataclasses.replace(p, prediction=flipped)}
+
+
+def phase_fused(card: str, fq: Path, counts: Counts) -> int:
+    """The north-star main path: `predict --fused-chop --random-init` through
+    the CLI on the flagship over the reads of `fq`, writing into the current
+    directory (no output prefix). Checks that the native host plane ran, that
+    mixer_fwd launched once a layer per batch and the setup kernel once, and
+    that the chopped FASTQ is byte-identical, after decompression and under the
+    same name, to the two-phase path on the same weights: `predict
+    --shard-format npz` then `chop`, and the same through `--shard-format pt`.
+    Each rule's control (the shards' labels with one read's flipped, chopped
+    again) must fail it. Prints reads/s, tokens/s and the stage breakdown.
+    Returns the setup kernel's launches."""
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch import cli, native
+    from deepchopper_tpu_torch.chop import ChopOptions, stream_chop_with_predicts
+    from deepchopper_tpu_torch.io.predicts import load_predicts_from_batch_pts
+    from deepchopper_tpu_torch.models.registry import build_model
+
+    work = fq.parent / "fused"
+    parser = cli.build_parser()
+    base = ["predict", str(fq), "--model", HYENA, "--random-init"]
+    (work / "one").mkdir(parents=True)
+    with contextlib.chdir(work / "one"):
+        native.reset_calls()
+        counts.reset()
+        stats = cli.predict(parser.parse_args([*base, "--fused-chop"]))
+        torch.cuda.synchronize()
+        launches = counts.read()
+        ran = {k: native.calls[k] for k in NATIVE_CALLS}
+    engine = stats.extras["engine"]
+    n_layer = build_model(HYENA).backbone_config.n_layer
+    if not all(ran.values()):
+        raise SmokeFailure(f"fused: the native host plane did not run: calls {ran}")
+    want = {"mixer_fwd": n_layer * engine.batches, "mixer_bwd": 0, "setup": 1}
+    if launches != want or not engine.batches:
+        raise SmokeFailure(f"fused: launches {launches} != {want} ({engine.batches} batches)")
+    if (stats.total_fq_count, stats.predicts_loaded, engine.reads) != (N_READS,) * 3:
+        raise SmokeFailure(f"fused: {stats.total_fq_count} reads, {stats.predicts_loaded} predicted, of {N_READS}")
+    fused_out = _chopped(work / "one")
+    fused_bytes = _gunzip(fused_out)
+    n_records = fused_bytes.count(b"\n+\n")
+    if n_records != stats.total_output_count or stats.total_output_count == stats.total_fq_count:
+        raise SmokeFailure(f"fused: {n_records} records written, {stats.total_output_count} counted, "
+                           f"{stats.total_fq_count} reads (no read chopped)")  # fmt: skip
+    print(f"fused predict+chop {HYENA}: {stats.total_fq_count} reads -> {stats.total_output_count} records "
+          f"({fused_out.name}), {engine.batches} batches; native calls {ran}; launches {launches}")  # fmt: skip
+    print(
+        f"fused throughput on {card}: {stats.total_fq_count / stats.elapsed_s:.1f} reads/s, "
+        f"{engine.tokens / stats.elapsed_s:.0f} tokens/s (wall {stats.elapsed_s:.3f} s, setup_s {engine.setup_s:.3f} s "
+        f"off the wall; stages: encode_s {stats.encode_s:.3f}, device_s {stats.device_s:.3f}, smooth_s "
+        f"{stats.smooth_s:.3f}, chop_write_s {stats.chop_write_s:.3f}, first_write_s {stats.first_write_s:.3f})"
+    )
+
+    for fmt in ("npz", "pt"):
+        cwd = work / fmt
+        cwd.mkdir()
+        with contextlib.chdir(cwd):
+            cli.predict(parser.parse_args([*base, "--shard-format", fmt, "-o", "shards"]))
+            if cli.main(["chop", "shards/0", str(fq)]) != 0:
+                raise SmokeFailure(f"chop over the {fmt} shards exited non-zero")
+            two = _chopped(cwd)
+            rule = f"fused == predict --shard-format {fmt}, then chop"
+            if two.name != fused_out.name or _gunzip(two) != fused_bytes:
+                raise SmokeFailure(f"{rule}: {two.name} vs {fused_out.name}, bytes equal: {_gunzip(two) == fused_bytes}")
+            predicts = load_predicts_from_batch_pts(cwd / "shards" / "0")
+            if not all(p.prediction.dtype == np.int8 and len(p.prediction) == len(p.seq) for p in predicts.values()):
+                raise SmokeFailure(f"{fmt} shards: labels of the wrong type or length")
+            name = next(f"bench_read_{i}" for i in range(N_READS) if not predicts[f"bench_read_{i}"].is_truncated)
+            control = stream_chop_with_predicts(one_read_flipped(predicts, name), fq, ChopOptions(output_prefix="control"))
+            if _gunzip(control.output_file) == fused_bytes:
+                raise SmokeFailure(f"{rule}: its control ({name}'s labels flipped) passes it")
+        print(f"  {rule}: same name, {len(fused_bytes)} bytes equal; control ({name}'s labels flipped) differs")
+    return launches["setup"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="Also profile predict and the train step (device time by kernel)")
@@ -1632,11 +1809,9 @@ def main() -> int:
     print(f"gpu: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     try:
-        from deepchopper_tpu_torch.ops import _build, gated, inproj, mixer, scan
+        from deepchopper_tpu_torch.ops import gated, inproj, mixer, scan, setup
 
-        t0 = time.perf_counter()
-        built = _build.build_all()
-        print(f"built {', '.join(sorted(built))} in {time.perf_counter() - t0:.1f} s")
+        setup_row = timed(phase_setup)
         fwd = timed(phase_kernels)
         bwd = timed(phase_bwd_kernel)
         scan_rows = timed(phase_scan_kernels)
@@ -1648,6 +1823,7 @@ def main() -> int:
         fq = bench_reads(work)
         timed(phase_predict, card, HYENA, fq, Counts(mixer), {"mixer_fwd": 1})
         timed(check_hyena_against_plain, fq, work / HYENA / "out" / "0")
+        setup_row["launches"] = timed(phase_fused, card, fq, Counts(mixer, setup))
         with route_env(UNFUSED):
             timed(phase_predict, card, HYENA, fq, Counts(mixer, gated), {"gated_fwd": 1, "mixer_fwd": 0}, "-unfused")
             timed(check_unfused_against_plain, fq, work / f"{HYENA}-unfused" / "out" / "0")
@@ -1683,7 +1859,7 @@ def main() -> int:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
     print(gpu_line())
-    print(json.dumps({"kernels": [fwd, bwd, *scan_rows, gated_row, conv_row, inproj_row]}))
+    print(json.dumps({"kernels": [fwd, bwd, *scan_rows, gated_row, conv_row, inproj_row, setup_row]}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -1,11 +1,13 @@
 """Global constants: the tokenizer vocabulary and the shard contract.
 
-Trimmed copy of `deepchopper_tpu/default.py` (what the predict path reads).
+Trimmed copy of `deepchopper_tpu/default.py` (what the predict and chop
+paths read).
 """
 
 from __future__ import annotations
 
 QUAL_OFFSET: int = 33
+MIN_READ_LEN: int = 150
 IGNORE_LABEL: int = -100
 
 # Character-level tokenizer vocabulary (HyenaDNA id layout: 0-6 are special
@@ -21,3 +23,11 @@ TOKEN_N: int = 11
 
 # Packed-ascii read-id width in prediction shards.
 MAX_ID_LENGTH: int = 256
+
+# Chop-stage tuned defaults (the reference's `deepchopper-chop` defaults).
+SMOOTH_WINDOW_SIZE: int = 21
+MIN_INTERVAL_SIZE: int = 13
+APPROVED_INTERVAL_NUMBER: int = 20
+MAX_PROCESS_INTERVALS: int = 4
+MIN_READ_LENGTH_AFTER_CHOP: int = 20
+CHOP_CHUNK_SIZE: int = 10_000

@@ -1,4 +1,4 @@
-"""Error types raised by the host-side encode path.
+"""Error types raised by the host-side encode and chop paths.
 
 Trimmed copy of `deepchopper_tpu/errors.py`.
 """
@@ -12,3 +12,11 @@ class EncodingError(ValueError):
 
 class TargetRegionInvalid(EncodingError):
     """Target region is out of bounds or inverted."""
+
+
+class InvalidInterval(EncodingError):
+    """Interval does not fit inside the sequence."""
+
+
+class QualSeqLengthMismatch(EncodingError):
+    """Sequence and quality lengths differ."""

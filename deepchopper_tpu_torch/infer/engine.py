@@ -2,12 +2,13 @@
 
 Port of `deepchopper_tpu/infer/engine.py:PredictEngine`. Reads are bucketed
 onto the 17-width ladder (`data/bucketing.py`); each batch runs at its own
-row count (eager PyTorch compiles nothing, so there is no executable cache,
-warmup or row-variant plan). Inputs reach the device as int8 token ids and
-uint8 raw phred; the per-read L2 quality norm runs on the device. Outputs
-are float32 logits (B, W, 2), or an on-device int8 argmax (B, W) with
-`return_labels`. Shards follow the predict -> chop contract as `.npz` under
-`output_dir/<dataloader_idx>/<rank>_<batch>.npz`.
+row count (eager PyTorch compiles nothing, so there is no executable cache
+and no row-variant plan: `runtime_setup` is the whole warm-up). Inputs reach
+the device as int8 token ids and uint8 raw phred; the per-read L2 quality
+norm runs on the device. Outputs are float32 logits (B, W, 2), or an
+on-device int8 argmax (B, W) with `return_labels`. Shards follow the predict
+-> chop contract under `output_dir/<dataloader_idx>/<rank>_<batch>.{npz,pt}`;
+`predict_to_predicts` and `infer.fused` skip the shards.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 from ..data.bucketing import Batch, default_buckets
 from ..data.fastq_module import iter_batches
 from ..device import resolve_device
-from ..io.predicts import write_prediction_shard
+from ..io.predicts import Predict, write_prediction_shard, write_prediction_shard_pt
+from ..ops.sequence import detokenize_bases
 
 log = logging.getLogger(__name__)
 
@@ -37,7 +39,9 @@ class PredictStats:
     batches: int = 0
     tokens: int = 0  # true token count (sum of read lengths incl. SEP)
     padded_tokens: int = 0  # tokens the device computed (B * W per batch)
-    elapsed_s: float = 0.0
+    elapsed_s: float = 0.0  # the stream only: runtime_setup is not in it
+    setup_s: float = 0.0  # runtime_setup: build, load and the first launch
+    build_s: float = 0.0  # the part of setup_s spent building kernel libraries
 
     @property
     def reads_per_s(self) -> float:
@@ -114,6 +118,34 @@ class PredictEngine:
         self.return_labels = return_labels
         self.stats = PredictStats()
 
+    def runtime_setup(self) -> float:
+        """Take the one-time kernel setup off the timed stream; returns its
+        seconds, also kept as `stats.setup_s`.
+
+        Builds every CUDA source of `ops/_build.SOURCES` (all nvcc processes
+        started together), loads each library, launches the setup kernel
+        (`ops/setup.py`, x + 1 on one (8, 128) tile) once, synchronises and
+        checks its output exactly. Runs once per engine: 0.0 on repeat calls
+        and on the CPU. A failed build or launch raises."""
+        if self.stats.setup_s or self.device.type != "cuda":
+            return 0.0
+        from ..ops import _build, setup
+
+        t0 = time.monotonic()
+        _build.build_all()
+        t_built = time.monotonic()
+        for source in _build.SOURCES:
+            _build.load(source)
+        x = torch.zeros(setup.SHAPE, dtype=torch.float32, device=self.device)
+        out = setup.setup_tile(x)
+        torch.cuda.synchronize(self.device)
+        if not torch.equal(out.cpu(), torch.ones(setup.SHAPE)):
+            raise RuntimeError("runtime_setup: the setup kernel's output is not x + 1")
+        self.stats.build_s = t_built - t0
+        self.stats.setup_s = time.monotonic() - t0
+        log.info("runtime setup in %.3fs (build %.3fs)", self.stats.setup_s, self.stats.build_s)
+        return self.stats.setup_s
+
     @torch.inference_mode()
     def step(self, ids_i8: torch.Tensor, quals_u8: torch.Tensor) -> torch.Tensor:
         """One device batch: int8 ids, uint8 phred (B, W) on the device ->
@@ -183,23 +215,21 @@ class PredictEngine:
         dataloader_idx: int = 0,
         max_samples: int | None = None,
         limit_batches: int | None = None,
+        shard_format: str = "npz",
     ) -> PredictStats:
-        """Predict a FASTQ and write `.npz` prediction shards."""
+        """Predict a FASTQ and write prediction shards: `shard_format` "npz",
+        or "pt" (the reference's torch format, which its `deepchopper-chop`
+        reads)."""
+        if shard_format not in ("npz", "pt"):
+            raise ValueError(f"shard_format must be 'npz' or 'pt', got {shard_format!r}")
+        write_shard = write_prediction_shard_pt if shard_format == "pt" else write_prediction_shard
         out = Path(output_dir) / str(dataloader_idx)
         out.mkdir(parents=True, exist_ok=True)
-        batches = iter_batches(
-            fq_path,
-            max_length=self.max_length,
-            tokens_per_batch=self.tokens_per_batch,
-            buckets=self.buckets,
-            max_samples=max_samples,
-            max_batch=self.max_batch,
-        )
-        for i, (batch, outputs) in enumerate(self.predict_batches(batches)):
+        for i, (batch, outputs) in enumerate(self.predict_batches(self._batches(fq_path, max_samples))):
             if limit_batches is not None and i >= limit_batches:
                 break
-            write_prediction_shard(
-                out / f"{rank}_{i}.npz",
+            write_shard(
+                out / f"{rank}_{i}.{shard_format}",
                 prediction=outputs,
                 target=batch.labels,
                 seq=batch.input_ids,
@@ -208,3 +238,27 @@ class PredictEngine:
             )
         log.info("predict: %d reads, %d batches, %.0f reads/s", self.stats.reads, self.stats.batches, self.stats.reads_per_s)
         return self.stats
+
+    def _batches(self, fq_path: str | Path, max_samples: int | None) -> Iterator[Batch]:
+        return iter_batches(
+            fq_path,
+            max_length=self.max_length,
+            tokens_per_batch=self.tokens_per_batch,
+            buckets=self.buckets,
+            max_samples=max_samples,
+            max_batch=self.max_batch,
+        )
+
+    def predict_to_predicts(self, fq_path: str | Path, max_samples: int | None = None) -> dict[str, Predict]:
+        """FASTQ -> per-read `Predict`s (on-device argmax, no shard IO), for
+        `chop.pipeline.stream_chop_with_predicts`."""
+        if not self.return_labels:
+            raise ValueError("construct PredictEngine(return_labels=True) for the fused path")
+        out: dict[str, Predict] = {}
+        for batch, labels in self.predict_batches(self._batches(fq_path, max_samples)):
+            for i, rid in enumerate(batch.read_ids):
+                n = int(batch.lengths[i]) - 1  # strip SEP
+                seq = batch.seqs[i][:n] if batch.seqs is not None else detokenize_bases(batch.input_ids[i, :n])
+                out[rid] = Predict(prediction=labels[i, :n].astype(np.int8), seq=seq, id=rid,
+                                   is_truncated=bool(batch.ids[i, 1]))  # fmt: skip
+        return out

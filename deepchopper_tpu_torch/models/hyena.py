@@ -12,15 +12,19 @@ Numerics follow the JAX package: matmuls and the residual stream in
 tanh GELU, and the mixer's gates and FFT in float32.
 
 The mixer takes one of three routes, chosen where and as the JAX package
-chooses them (`HyenaOperator` there, `models/hyena.py:339-386`), from two
-environment variables read at every forward (`mixer_route`):
+chooses them on its TPU (`HyenaOperator` there, `models/hyena.py:339-386`),
+from the width L and two environment variables read at every forward
+(`mixer_route`):
 - fused (default): in_proj, then `ops.mixer` (short conv, gates and long conv
   in one kernel; the short conv in float32);
-- unfused, with `DEEPCHOPPER_FUSE_SHORT=0` or when d_model % 8 != 0: in_proj,
-  `short_depthwise_conv_cf` in `compute_dtype`, then `ops.gated`;
+- unfused, with `DEEPCHOPPER_FUSE_SHORT=0`, when d_model % 8 != 0, or at a
+  width the kernels do not take (`kernel_width`: 512 <= 2L <= 65536 and
+  2L % 512 == 0): in_proj, `short_depthwise_conv_cf` in `compute_dtype`, then
+  the gated conv: `ops.gated` at a kernel width, else its plain float32
+  composition (the JAX package's XLA route there);
 - in_proj-fused, with `DEEPCHOPPER_FUSE_INPROJ=1` on the fused route:
   `ops.inproj` (in_proj inside the mixer kernel).
-In float32 the three compute the same function. The JAX package's other two
+In float32 they compute the same function. The JAX package's other two
 mixer knobs, `DEEPCHOPPER_MIXER_BM` and `DEEPCHOPPER_FFT_LAYOUT`, pick TPU
 block layouts of the same math; the port has one layout and reads neither.
 """
@@ -36,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import fft_causal_conv
-from ..ops.gated import gated_fft_conv_bm
+from ..ops.gated import gated_fft_conv_bm, gated_reference
 from ..ops.inproj import mixer_fft_conv_inproj
 from ..ops.mixer import mixer_fft_conv_bm
 from .config import HyenaConfig
@@ -179,16 +183,28 @@ def short_depthwise_conv_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.T
     return out + bias.to(x.dtype)[:, None]
 
 
+def kernel_width(seq_len: int) -> bool:
+    """Whether the FFT kernels take width L: the JAX package's rule for its
+    Pallas kernels, 512 <= 2L <= 65536 and 2L % 512 == 0."""
+    n = 2 * seq_len
+    return 512 <= n <= 65536 and n % 512 == 0
+
+
 def gated_causal_conv(uc: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Gate -> causal long conv -> gate on a short-convolved (B, 3D, L)
-    stream [x2 | x1 | v] -> (B, D, L) in uc's dtype (`ops.gated`)."""
-    return gated_fft_conv_bm(uc, k, bias)
+    stream [x2 | x1 | v] -> (B, D, L) in uc's dtype: `ops.gated` at a kernel
+    width, else its plain float32 composition, as `gated_causal_conv_cm`
+    dispatches in the JAX package."""
+    if kernel_width(uc.shape[2]):
+        return gated_fft_conv_bm(uc, k, bias)
+    return gated_reference(uc, k, bias)
 
 
-def mixer_route(d_model: int) -> str:
-    """The mixer route the JAX package would take for this width and
-    environment: "fused", "unfused" or "inproj" (module docstring)."""
-    if os.environ.get("DEEPCHOPPER_FUSE_SHORT", "1") != "1" or d_model % 8 != 0:
+def mixer_route(d_model: int, seq_len: int) -> str:
+    """The mixer route the JAX package would take on its TPU for this
+    d_model, width and environment: "fused", "unfused" or "inproj" (module
+    docstring)."""
+    if os.environ.get("DEEPCHOPPER_FUSE_SHORT", "1") != "1" or d_model % 8 != 0 or not kernel_width(seq_len):
         return "unfused"
     if os.environ.get("DEEPCHOPPER_FUSE_INPROJ", "0") == "1":
         return "inproj"
@@ -222,7 +238,7 @@ class HyenaOperator(nn.Module):
         dtype = getattr(torch, self.cfg.compute_dtype)
         k_long, bias = self.filter_fn(u.shape[2])
         k_short, b_short = self.short_filter_kernel, self.short_filter_bias
-        route = mixer_route(self.cfg.d_model)
+        route = mixer_route(self.cfg.d_model, u.shape[2])
         if route == "inproj":
             w_in, b_in = self.in_proj.weight, self.in_proj.bias
             y = mixer_fft_conv_inproj(u.to(dtype), w_in, b_in, k_short, b_short, k_long, bias)

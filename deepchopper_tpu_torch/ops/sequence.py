@@ -1,7 +1,7 @@
 """Base-sequence ops: normalization and tokenization lookup tables.
 
 Trimmed copy of `deepchopper_tpu/ops/sequence.py`: tokenization is a uint8
-table gather over the raw read bytes.
+table gather over the raw read bytes, detokenization its inverse.
 """
 
 from __future__ import annotations
@@ -46,6 +46,20 @@ def _build_token_lut() -> np.ndarray:
 _TOKEN_LUT = _build_token_lut()
 
 
+def _build_detoken_lut() -> np.ndarray:
+    """token-id -> ASCII base LUT; ids outside 7..11 decode to 'N'."""
+    lut = np.full(256, ord("N"), dtype=np.uint8)
+    lut[default.TOKEN_A] = ord("A")
+    lut[default.TOKEN_C] = ord("C")
+    lut[default.TOKEN_G] = ord("G")
+    lut[default.TOKEN_T] = ord("T")
+    lut[default.TOKEN_N] = ord("N")
+    return lut
+
+
+_DETOKEN_LUT = _build_detoken_lut()
+
+
 def seq_to_bytes(seq: str | bytes | np.ndarray) -> np.ndarray:
     """Coerce a sequence to a uint8 byte array (zero-copy for bytes)."""
     if isinstance(seq, np.ndarray):
@@ -63,3 +77,16 @@ def normalize_seq_bytes(seq: np.ndarray) -> np.ndarray:
 def tokenize_bases(seq: str | bytes | np.ndarray) -> np.ndarray:
     """Base characters -> token ids (int32), one id per base, no special tokens."""
     return _TOKEN_LUT[seq_to_bytes(seq)]
+
+
+def detokenize_bases(ids: np.ndarray) -> str:
+    """Token ids -> base string; ids outside 7..11 (negative ones too) decode
+    to 'N'."""
+    clipped = np.clip(np.asarray(ids), 0, 255).astype(np.int64)
+    return _DETOKEN_LUT[clipped].tobytes().decode("ascii")
+
+
+def ascii_list2str(ascii_list) -> str:
+    """Packed ascii codes -> str."""
+    arr = np.asarray(ascii_list, dtype=np.int64)
+    return arr.astype(np.uint8).tobytes().decode("ascii", errors="replace")

@@ -306,3 +306,33 @@ def test_route_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):
             call()
             pytest.fail(why)
+
+
+def test_setup_kernel_matches_plain(cuda):
+    from deepchopper_tpu_torch.ops import setup
+
+    for shape in (setup.SHAPE, (3, 1024)):
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32)).to(cuda)
+        setup.reset_launch_counts()
+        got = setup.setup_tile(x)
+        torch.cuda.synchronize()
+        assert setup.launch_counts["setup"] == 1
+        assert got.dtype == torch.float32 and torch.equal(got, setup.setup_reference(x))
+    for bad in (torch.zeros(setup.SHAPE, device=cuda, dtype=torch.bfloat16), torch.zeros(2, 2048, device=cuda)):
+        with pytest.raises(ValueError):
+            setup.setup_tile(bad)
+
+
+def test_runtime_setup_launches_the_setup_kernel_once_per_engine(cuda):
+    from deepchopper_tpu_torch.infer.engine import PredictEngine
+    from deepchopper_tpu_torch.models.registry import build_model
+    from deepchopper_tpu_torch.ops import _build, setup
+
+    setup.reset_launch_counts()
+    engine = PredictEngine(build_model("hyenadna-tiny-1k-seqlen"), max_length=1024, device=cuda)
+    seconds = engine.runtime_setup()
+    assert seconds > 0 and engine.stats.setup_s == seconds and 0 <= engine.stats.build_s <= seconds
+    assert engine.stats.elapsed_s == 0.0
+    assert setup.launch_counts["setup"] == 1
+    assert set(_build.SOURCES) <= set(_build._loaded)
+    assert engine.runtime_setup() == 0.0 and setup.launch_counts["setup"] == 1
