@@ -9,7 +9,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    processes started together, loads each library and launches the setup
    kernel (`csrc/setup.cu`, x + 1 on an (8, 128) tile) once. Prints setup_s
    and its build seconds, holds the setup kernel to x + 1 exactly and times
-   it beside `torch.add`.
+   it beside `torch.add`, after printing the host µs of each part of its
+   launch path (ctypes call, allocation, stream lookup, device guard, checks).
 2. Holds each kernel to its plain PyTorch version on the card, at every one
    of the 17 bucket widths:
    - the fused Hyena mixer at D = 256, B = 2, and its backward at D = 256,
@@ -19,7 +20,10 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      gradients, and a second call must be bitwise equal. Then, at the
      flagship batch shapes (forward B = 2^17 // W, backward min(512, 2^17 //
      W)), each again in bfloat16, timed beside the least time the card could
-     take (bytes at 3.35 TB/s, f32 flops at 67 TFLOP/s).
+     take (bytes at 3.35 TB/s, f32 flops at 67 TFLOP/s) and, for the
+     forward, beside the radix-2 design's time; the forward's call is
+     split into kernel, the wrapper's device work and host time at W = 1024,
+     8192 and 32768 (torch.profiler).
    - the three selective-scan kernels at Caduceus's widths (Din = 512,
      N = 16), B = 2^17 // W, both directions, float32, and at the ragged
      L = 1000: scan_fwd's y and scan_ckpt's states within 1e-5 of max|ref|,
@@ -31,7 +35,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      max|ref|) and bf16 (1e-2); the causal conv (conv_fwd) in f32 only. Then
      each at B = 2^17 // W, timed beside its plain version and its bound (the
      in_proj kernel's also counts its GEMM at the bf16 tensor-core peak), the
-     in_proj kernel also beside the composed route (torch.matmul + mixer_fwd).
+     in_proj kernel also beside the composed route (torch.matmul + mixer_fwd),
+     the conv beside its library call (depthwise F.conv1d).
      The causal conv's own path, the public op `models.hyena.causal_conv`,
      runs once a width over the ladder (no model route reaches it).
 3. Drives `predict --random-init` (the CLI's own parser and code path) over
@@ -71,8 +76,9 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    Then overfits one full Hyena batch (loss below half its first value
    within 100 steps) and times the train step of each model: ms/step,
    tokens/s and peak memory.
-6. With `--profile`, profiles one more pass of predict and three train
-   steps of each model: device time by kernel and the device's busy share.
+6. With `--profile`, profiles one warm `predict --fused-chop` pass of the
+   flagship, then one more pass of predict and three train steps of each
+   model: device time by kernel and the device's busy share.
 7. Prints the kernel table as one JSON line (launches from the train runs;
    conv_fwd's from its op's run; setup's from the fused run) and, last, the
    contract line.
@@ -224,6 +230,51 @@ def mixer_bound(batch: int, d_model: int, seq_len: int, itemsize: int) -> tuple[
     return nbytes, flops
 
 
+SPLIT_WIDTHS = (1024, 8192, 32768)
+# The radix-2 mixer_fwd's call at each width, bf16, B = 2^17 // W (PERF.md's
+# first by-width row, H100 80GB HBM3 at 700 W), printed beside this run's.
+RADIX2_MIXER_MS = {256: 1.248, 512: 1.362, 768: 2.153, 1024: 1.631, 1280: 2.616, 1536: 2.199, 2048: 1.718,
+                   2560: 2.827, 3072: 2.360, 4096: 1.829, 5120: 3.098, 6144: 2.567, 8192: 2.057, 12288: 3.189,
+                   16384: 2.650, 24576: 3.920, 32768: 3.375}  # fmt: skip
+
+
+def print_mixer_call_split(d_model: int, reps: int = 5) -> None:
+    """The timed mixer call split into the kernel and the wrapper's own device
+    work (filter_spectrum's rfft, casts), from torch.profiler's kernel times
+    over `reps` calls, at three ladder widths (bf16, B = 2^17 // W); what the
+    CUDA-event time of a call holds beyond both is host time and gaps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepchopper_tpu_torch.ops import mixer
+
+    print("mixer_fwd call split (ms a call; profiler kernel times, CUDA-event call time):")
+    for seq_len in SPLIT_WIDTHS:
+        batch = TOKENS_PER_BATCH // seq_len
+        args = mixer_inputs(batch, d_model, seq_len, torch.bfloat16, seed=seq_len + 2)
+        call_ms = time_ms(lambda: mixer.mixer_fft_conv_bm(*args), reps=reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                mixer.mixer_fft_conv_bm(*args)
+            torch.cuda.synchronize()
+        kernel = other = 0.0
+        names = set()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                if "mixer_fwd" in e.key:
+                    kernel += e.self_device_time_total / 1e3 / reps
+                else:
+                    other += e.self_device_time_total / 1e3 / reps
+                    names.add(e.key[:40])
+        if not kernel:
+            print(f"  W={seq_len:6d}: call {call_ms:.3f}; kernel time not measured (the profiler saw no device time)")
+            continue
+        print(f"  W={seq_len:6d} B={batch:4d}: call {call_ms:.3f}, kernel {kernel:.3f}, wrapper's device work "
+              f"{other:.3f} ({'; '.join(sorted(names))}), host and gaps {call_ms - kernel - other:.3f}")  # fmt: skip
+        del args
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -264,13 +315,15 @@ def phase_kernels() -> dict:
         print(
             f"  W={seq_len:6d} B={batch:4d} err {err:.2e} ({err / scale:.1e})  kernel {ms:8.3f} ms  "
             f"plain {plain_ms:8.3f} ms  bound {bound:.3f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-            f"bytes {bytes_ms:.3f}, f32 ops {ops_ms:.3f})  kernel/bound {ms / bound:.1f}x"
+            f"bytes {bytes_ms:.3f}, f32 ops {ops_ms:.3f})  kernel/bound {ms / bound:.1f}x  "
+            f"radix-2 design {RADIX2_MIXER_MS[seq_len]:.3f} ms"
         )
         del args
     print(
         f"  ladder total: kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
         f"bound {totals['bound_ms']:.3f} ms"
     )
+    print_mixer_call_split(d_model)
     return {
         "name": "mixer_fwd",
         "route": "cuda",
@@ -1246,9 +1299,27 @@ def phase_profile(fq: Path) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from deepchopper_tpu_torch.chop import ChopOptions
     from deepchopper_tpu_torch.infer.engine import PredictEngine
+    from deepchopper_tpu_torch.infer.fused import fused_predict_chop
     from deepchopper_tpu_torch.models.registry import DeepChopper
     from deepchopper_tpu_torch.train.step import make_optimizer, train_step
+
+    # The main path: one `predict --fused-chop` pass of the flagship over the
+    # reads, after a warm pass, as the CLI runs it (runtime_setup first).
+    engine = PredictEngine(DeepChopper.new(HYENA, seed=0, device="cuda"), return_labels=True, device="cuda")
+    engine.runtime_setup()
+    fused_predict_chop(engine, fq, ChopOptions(output_prefix=str(fq.parent / "profiled-warm")))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = fused_predict_chop(engine, fq, ChopOptions(output_prefix=str(fq.parent / "profiled-fused")))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_device_time(prof, wall_ms, f"predict --fused-chop {HYENA}")
+    print(f"  under the profiler: elapsed_s {stats.elapsed_s:.3f}, device_s {stats.device_s:.3f} (the feed thread's "
+          f"wait on the model), encode_s {stats.encode_s:.3f}")  # fmt: skip
+    del engine
 
     for name, shape in ((HYENA, (128, 1024)), (CADUCEUS, (64, 1024))):
         engine = PredictEngine(DeepChopper.new(name, seed=0, device="cuda"), device="cuda")
@@ -1339,6 +1410,29 @@ def route_bound(kind: str, batch: int, d_model: int, seq_len: int, itemsize: int
     return nbytes / HBM_BYTES_PER_S * 1e3, (flops / F32_FLOPS_PER_S + gemm / BF16_TENSOR_FLOPS_PER_S) * 1e3
 
 
+def conv_library_ms(v, k, bias) -> float:
+    """The one PyTorch call that computes conv_fwd's function: F.conv1d on the
+    (B, D, L) layout, depthwise (groups = D), padding L - 1, the filter flipped
+    with the skip bias folded into tap 0; its first L outputs are the causal
+    conv. The transposes and the filter's preparation stay outside the timing.
+    Held to the plain version (1e-4 of max|ref|, f32 with TF32 off), then
+    timed once after one warm-up call (it is O(L^2) a row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepchopper_tpu_torch.ops import conv
+
+    batch, seq_len, d_model = v.shape
+    x = v.transpose(1, 2).contiguous()
+    taps = k.float().clone()
+    taps[0] += bias.float()
+    weight = taps.flip(0).T.contiguous()[:, None, :]  # (D, 1, L)
+    got = F.conv1d(x, weight, padding=seq_len - 1, groups=d_model)[..., :seq_len]
+    within(got.transpose(1, 2), conv.conv_reference(v, k, bias), 1e-4, f"F.conv1d B={batch} L={seq_len}")
+    del got
+    return time_ms(lambda: F.conv1d(x, weight, padding=seq_len - 1, groups=d_model), reps=1, warmup=1)
+
+
 def phase_route_kernels() -> list[dict]:
     """gated_fwd and mixer_inproj_fwd against their plain versions at D = 256,
     B = 2 at every ladder width in float32 (1e-4 of max|ref|) and bfloat16
@@ -1370,8 +1464,8 @@ def phase_route_kernels() -> list[dict]:
         print(line)
 
     print("at flagship batch shapes (B = 2^17 // W, D = 256; gated and in_proj bf16, conv f32):")
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
-            for k in ROUTE_KERNELS}  # fmt: skip
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+                "library_ms": 0.0} for k in ROUTE_KERNELS}  # fmt: skip
     composed_total = 0.0
     for seq_len in widths:
         batch = TOKENS_PER_BATCH // seq_len
@@ -1400,6 +1494,10 @@ def phase_route_kernels() -> list[dict]:
                 composed = time_ms(lambda: mixer.mixer_fwd_cuda(inproj.projection_composed(x, w_in, b_in), *mix))
                 composed_total += composed
                 line += f" composed {composed:.3f}"
+            if kind == "conv_fwd":
+                library_ms = conv_library_ms(*args)
+                row["library_ms"] += library_ms
+                line += f" F.conv1d {library_ms:.3f}"
             del args
         print(line)
     out = []
@@ -1411,8 +1509,10 @@ def phase_route_kernels() -> list[dict]:
             "name": kind, "route": "cuda", "source": f"deepchopper_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": None, "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
-            "library_ms": None,
+            "library_ms": row["library_ms"] if kind == "conv_fwd" else None,
         })  # fmt: skip
+    library_total = rows["conv_fwd"]["library_ms"]
+    print(f"  conv_fwd's library call (F.conv1d, depthwise, (B, D, L)) ladder total: {library_total:.3f} ms")
     print(f"  composed in_proj route (torch.matmul in_proj + mixer_fwd.cu) ladder total: {composed_total:.3f} ms, "
           f"in_proj-fused kernel {rows['mixer_inproj_fwd']['ms']:.3f} ms")  # fmt: skip
     return out
@@ -1629,6 +1729,61 @@ def phase_route_train_parity() -> None:
 SETUP_REPS = 2000
 
 
+def host_us(fn, reps: int = SETUP_REPS) -> float:
+    """Host µs a call of `fn` over `reps` back-to-back calls, synchronised at
+    the end (a launch's device time hides behind the next launch's host side)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def print_launch_split(x) -> None:
+    """Each part of the setup kernel's launch path alone, µs a call over
+    SETUP_REPS calls: the ctypes call (its launch included), the output
+    allocation, the stream lookup and the device guard (the earlier way and the
+    launch helper's), the argument checks, and the whole wrapper."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import _build, setup
+
+    import ctypes
+
+    lib, out, dev = setup._lib(), torch.empty_like(x), x.device
+    xp, op, rows, cols = x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    released = ctypes.CDLL(str(_build._target("setup.cu"))).setup_fwd  # releases the GIL around the call
+    released.argtypes, released.restype = lib.setup_fwd.argtypes, lib.setup_fwd.restype
+
+    def guard_old():
+        with torch.cuda.device(dev):
+            pass
+
+    def checks():
+        return not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2 or not 0 < x.shape[1] <= 1024
+
+    parts = {
+        "ctypes call (PyDLL, the helper's)": lambda: lib.setup_fwd(xp, op, rows, cols, stream),
+        "ctypes call (CDLL)": lambda: released(xp, op, rows, cols, stream),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "torch.empty(shape, device)": lambda: torch.empty((rows, cols), device=dev),
+        "stream: current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream: raw (helper)": lambda: _build._raw_stream(x.get_device()),
+        "guard: with torch.cuda.device": guard_old,
+        "guard: index compare (helper)": lambda: x.get_device() == _build._current_device(),
+        "checks": checks,
+        "whole setup_tile": lambda: setup.setup_tile(x),
+    }
+    split = ", ".join(f"{name} {host_us(fn):.3f}" for name, fn in parts.items())
+    print(f"setup launch path, host µs a call over {SETUP_REPS} calls: {split}")
+
+
 def phase_setup() -> dict:
     """`PredictEngine.runtime_setup` on a fresh flagship engine: it builds every
     source of `ops/_build.SOURCES` (all nvcc processes started together),
@@ -1657,13 +1812,15 @@ def phase_setup() -> dict:
     got = setup.setup_tile(x)
     if not torch.equal(got, setup.setup_reference(x)):
         raise SmokeFailure(f"setup kernel: max-abs err {(got - setup.setup_reference(x)).abs().max().item():.3e}")
+    print_launch_split(x)
     ms = time_ms(lambda: setup.setup_tile(x), reps=SETUP_REPS, warmup=20)
     plain_ms = time_ms(lambda: setup.setup_reference(x), reps=SETUP_REPS, warmup=20)
     library_ms = time_ms(lambda: torch.add(x, 1.0), reps=SETUP_REPS, warmup=20)
     nbytes = 2 * x.numel() * 4
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, x.numel() / F32_FLOPS_PER_S * 1e3
     print(f"setup kernel (8, 128) f32: equal to x + 1; {ms * 1e3:.3f} µs a launch, plain (x + 1.0) "
-          f"{plain_ms * 1e3:.3f} µs, torch.add {library_ms * 1e3:.3f} µs, bound {bytes_ms * 1e6:.3f} ns (bytes)")  # fmt: skip
+          f"{plain_ms * 1e3:.3f} µs, torch.add {library_ms * 1e3:.3f} µs, bound {bytes_ms * 1e6:.3f} ns (bytes); "
+          f"launch at or below torch.add: {ms <= library_ms}")  # fmt: skip
     return {
         "name": "setup", "route": "cuda", "source": "deepchopper_tpu_torch/csrc/setup.cu",
         "replaces": "deepchopper_tpu/infer/engine.py:336", "launches": None, "max_abs_err": 0.0, "ms": ms,

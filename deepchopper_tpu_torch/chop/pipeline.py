@@ -72,9 +72,12 @@ def output_name(fq_path: Path, opts: ChopOptions, stats: ChopStats) -> str:
     return f"{base}.{stats.predicts_loaded}pd.{stats.total_output_count}record.chop.fq.gz"
 
 
-def temp_output_path(fq_path: Path, opts: ChopOptions) -> Path:
-    """The hidden file the output is written to before its final rename."""
-    out_dir = Path(opts.output_prefix).parent if opts.output_prefix is not None else fq_path.parent
+def temp_output_path(opts: ChopOptions) -> Path:
+    """The hidden file the output is written to before its final rename, in
+    the directory `output_name` resolves to (the prefix's, else the current
+    one), so the rename never crosses filesystems. The JAX package puts it
+    beside the input instead."""
+    out_dir = Path(opts.output_prefix).parent if opts.output_prefix is not None else Path.cwd()
     out_dir.mkdir(parents=True, exist_ok=True)
     return out_dir / f".deepchopper_temp_{os.getpid()}.fq.gz"
 
@@ -174,7 +177,7 @@ def stream_chop_with_predicts(
     fq_path = Path(fq_path)
     start = time.monotonic()
     stats = ChopStats(predicts_loaded=len(all_predicts))
-    temp_output = temp_output_path(fq_path, opts)
+    temp_output = temp_output_path(opts)
     try:
         with open_bgzf_writer(temp_output, threads=opts.threads, level=opts.compression_level) as writer:
             for chunk in iter_fastq_chunks(fq_path, opts.chunk_size):

@@ -1,6 +1,7 @@
-// Device code shared by the fused Hyena mixer kernels (mixer_fwd.cu, mixer_bwd.cu):
-// complex helpers, the gates' 3-tap short conv, in-place radix-2 FFT stages in
-// shared memory, and the split/merge that turn a complex length-M transform of a
+// Device code shared by the FFT-conv kernels (mixer_fwd.cu, mixer_bwd.cu,
+// fftconv.cuh): complex helpers, the gates' 3-tap short conv, in-place radix-2
+// FFT stages in shared memory (mixer_fwd.cu runs fft_radix.cuh's passes
+// instead), and the split/merge that turn a complex length-M transform of a
 // packed real sequence into its length-2M real spectrum and back.
 //
 // Conventions. N = 2M is the real transform length (a power of two), tw[j] =

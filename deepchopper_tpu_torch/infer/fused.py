@@ -146,7 +146,7 @@ def fused_predict_chop(
         on_chunk=order.append,
         max_lag_chunks=max(2, (32 << 20) // chunk_bytes),
     )
-    temp_output = temp_output_path(fq_path, opts)
+    temp_output = temp_output_path(opts)
 
     def chop_ready(writer) -> None:
         """Chop, in file order, every leading chunk whose reads all have

@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources with `nvcc` and load them with ctypes.
+"""Build the package's CUDA sources with `nvcc`, load them with ctypes, and
+launch their entry points.
 
 Each `csrc/*.cu` file compiles on its own into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), for `sm_90a`.
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -97,6 +100,33 @@ def load(source: str) -> ctypes.CDLL:
         lib = _loaded.get(source)
         if lib is None:
             path = build_all((source,))[source]
-            lib = ctypes.CDLL(str(path))
+            # Every entry point only enqueues work and returns: keeping the
+            # GIL (PyDLL) spares a release and a re-acquire per launch.
+            lib = ctypes.PyDLL(str(path))
             _loaded[source] = lib
         return lib
+
+
+# PyTorch's bindings for the raw current stream of a device and the current
+# device (absent from a CPU-only build, where no launch gets that far).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def launch(fn, tensor: torch.Tensor, *args, what: str) -> None:
+    """Call a kernel's C entry `fn(*args, stream) -> cudaError_t` (a ctypes
+    function whose argtypes were set once) on PyTorch's current stream of
+    `tensor`'s device, and raise on a nonzero error. A device guard is
+    entered only when `tensor` is not on the current device. Raises on a
+    tensor that is not on a CUDA device."""
+    index = tensor.get_device()
+    if index < 0:
+        raise ValueError(f"{what}: needs a CUDA tensor, got one on {tensor.device}")
+    stream = _raw_stream(index)
+    if index == _current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

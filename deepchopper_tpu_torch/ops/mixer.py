@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the main path ran
 # through the kernels.
@@ -104,21 +106,15 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("mixer_fwd.cu")
     ptr = ctypes.c_void_p
-    lib.mixer_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr] + [ctypes.c_int] * 5 + [ptr]
+    lib.mixer_fwd.argtypes = [ptr] * 6 + [ctypes.c_int] * 5 + [ptr]
     lib.mixer_fwd.restype = ctypes.c_int
-    lib.mixer_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
-    lib.mixer_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("mixer_bwd.cu")
     ptr = ctypes.c_void_p
     lib.mixer_bwd.argtypes = [ptr] * 9 + [ctypes.c_int] * 5 + [ptr]
@@ -172,18 +168,11 @@ def mixer_fwd_cuda(
     khat = filter_spectrum(k_long, bias, n)
     tw = _twiddles(n, dev)
     out = torch.empty((batch, d_model, seq_len), dtype=proj.dtype, device=dev)
-    lib = _lib()
-    scratch_bytes = lib.mixer_fwd_scratch_bytes(batch, d_model, log2n)
-    scratch = torch.empty(max(scratch_bytes, 8), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mixer_fwd(
-            proj.data_ptr(), taps_f.data_ptr(), bsh.data_ptr(), khat.data_ptr(), tw.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(),
-            batch, d_model, seq_len, log2n, _DTYPE_CODES[proj.dtype], stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"mixer_fwd launch failed: cudaError {err} at (B={batch}, D={d_model}, L={seq_len})")
+    _build.launch(
+        _lib().mixer_fwd, proj,
+        proj.data_ptr(), taps_f.data_ptr(), bsh.data_ptr(), khat.data_ptr(), tw.data_ptr(), out.data_ptr(),
+        batch, d_model, seq_len, log2n, _DTYPE_CODES[proj.dtype], what="mixer_fwd",
+    )  # fmt: skip
     launch_counts["mixer_fwd"] += 1
     return out
 

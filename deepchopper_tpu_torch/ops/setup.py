@@ -16,6 +16,8 @@ import functools
 
 import torch
 
+from . import _build
+
 SHAPE = (8, 128)
 
 # Launches of the CUDA kernel since the last reset: one per wrapper call that
@@ -35,8 +37,6 @@ def setup_reference(x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("setup.cu")
     ptr = ctypes.c_void_p
     lib.setup_fwd.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr]
@@ -51,11 +51,7 @@ def setup_cuda(x: torch.Tensor) -> torch.Tensor:
                          f"on {x.device}")  # fmt: skip
     x = x.contiguous()
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _lib().setup_fwd(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"setup_fwd launch failed: cudaError {err}")
+    _build.launch(_lib().setup_fwd, x, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], what="setup_fwd")
     launch_counts["setup"] += 1
     return out
 

@@ -156,6 +156,35 @@ def test_run_chop_matches_jax(planted, variant, fmt, tmp_path, monkeypatch):
     assert ps.total_output_count != ps.total_fq_count or variant  # the default run chops reads
 
 
+def test_chop_from_another_directory_keeps_its_temp_file_beside_the_output(planted, tmp_path, monkeypatch):
+    """No output prefix, run from a directory on another path than the
+    input's: the temporary file is made in the current directory, where the
+    output lands (so the final rename never crosses filesystems), none is
+    left anywhere, and the bytes and name equal the JAX package's."""
+    from deepchopper_tpu_torch.chop import pipeline
+
+    fq, npz, _pt = planted
+    opened: list[Path] = []
+
+    def spy(path, **kw):
+        opened.append(Path(path))
+        return open_bgzf_writer(path, **kw)
+
+    monkeypatch.setattr(pipeline, "open_bgzf_writer", spy)
+    (tmp_path / "jax").mkdir()
+    monkeypatch.chdir(tmp_path / "jax")
+    want = jax_run_chop([npz], fq, JaxChopOptions())
+    cwd = tmp_path / "elsewhere" / "port"
+    cwd.mkdir(parents=True)
+    monkeypatch.chdir(cwd)
+    got = run_chop([npz], fq, ChopOptions())
+    assert fq.parent != cwd and len(opened) == 1
+    assert opened[0].parent == cwd and opened[0].name.startswith(".deepchopper_temp_")
+    assert got.output_file == want.output_file and (cwd / got.output_file).exists()
+    assert _decompressed(cwd / got.output_file) == _decompressed(tmp_path / "jax" / want.output_file)
+    assert not list(tmp_path.rglob(".deepchopper_temp_*")) and not list(fq.parent.rglob(".deepchopper_temp_*"))
+
+
 def test_jax_reads_pt_shards_the_port_wrote(planted, tmp_path):
     """The other direction: `.pt` shards from the port's writer load in the
     JAX package as the port loads them."""

@@ -36,12 +36,15 @@ def _inputs(batch, d_model, seq_len, dtype, device, seed=0):
     return proj.to(device, dtype), k_short.to(device), b_short.to(device), k_long.to(device), bias.to(device)
 
 
-# 256..16384 run the shared-memory branch, 24576 and 32768 the global-scratch
-# branch; 300 and 1000 are off-ladder widths (odd half-lengths).
-@pytest.mark.parametrize("seq_len", [256, 300, 1000, 1280, 16384, 24576, 32768])
+# Up to 16384 the rows kernel (several batch rows a block up to L = 1024),
+# 24576 and 32768 the two-CTA cluster kernel. 1, 7 and 8 take the smallest
+# transform (N = 8, one radix-2 pass); 7, 33, 300 and 1000 are not whole 16-byte
+# chunks (the scalar loads); B = 3 and 5 leave a block's rows part empty.
+@pytest.mark.parametrize("seq_len", [1, 7, 8, 33, 256, 300, 1000, 1280, 2048, 3072, 6144, 12288, 16384, 24576, 32768])
+@pytest.mark.parametrize("batch", [1, 2, 3, 5])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-def test_mixer_kernel_matches_plain(cuda, seq_len, dtype, tol):
-    args = _inputs(2, 8, seq_len, dtype, cuda, seed=seq_len)
+def test_mixer_kernel_matches_plain(cuda, seq_len, batch, dtype, tol):
+    args = _inputs(batch, 8, seq_len, dtype, cuda, seed=seq_len)
     mixer.reset_launch_counts()
     got = mixer.mixer_fft_conv_bm(*args)
     torch.cuda.synchronize()
@@ -50,6 +53,17 @@ def test_mixer_kernel_matches_plain(cuda, seq_len, dtype, tol):
     assert got.dtype == ref.dtype and got.shape == ref.shape
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("seq_len", [256, 1000, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_rows_are_independent_of_their_batch(cuda, seq_len, dtype):
+    """Each row of a B = 5 call is bitwise the row run alone, whichever rows
+    share its block: the fused path's byte identity rests on it."""
+    args = _inputs(5, 8, seq_len, dtype, cuda, seed=seq_len + 3)
+    whole = mixer.mixer_fwd_cuda(*args)
+    for b in range(5):
+        assert torch.equal(whole[b : b + 1], mixer.mixer_fwd_cuda(args[0][b : b + 1], *args[1:]))
 
 
 def test_mixer_kernel_rejects_bad_shapes(cuda):

@@ -145,6 +145,35 @@ def test_fused_predict_chop_matches_jax(engines, kind, tmp_path, monkeypatch):
     assert not list(fq.parent.glob(".deepchopper_temp_*"))
 
 
+def test_fused_from_another_directory_keeps_its_temp_file_beside_the_output(engines, tmp_path, monkeypatch):
+    """No output prefix, run from a directory on another path than the
+    input's: the temporary file is made in the current directory, where the
+    output lands, none is left anywhere, and the bytes and name equal the JAX
+    package's."""
+    jax_engine, port_engine = engines
+    (tmp_path / "input").mkdir()
+    fq = write_fastq(tmp_path / "input" / "in.fq", seed=13)
+    opened: list[Path] = []
+
+    def spy(path, **kw):
+        opened.append(Path(path))
+        return open_bgzf_writer(path, **kw)
+
+    monkeypatch.setattr(fused, "open_bgzf_writer", spy)
+    (tmp_path / "jax").mkdir()
+    monkeypatch.chdir(tmp_path / "jax")
+    want = jax_fused(jax_engine, fq, JaxChopOptions())
+    cwd = tmp_path / "elsewhere" / "port"
+    cwd.mkdir(parents=True)
+    monkeypatch.chdir(cwd)
+    got = fused.fused_predict_chop(port_engine, fq, ChopOptions())
+    assert len(opened) == 1 and opened[0].parent == cwd and opened[0].name.startswith(".deepchopper_temp_")
+    assert got.output_file == want.output_file and (cwd / got.output_file).exists()
+    assert got.total_output_count != got.total_fq_count  # reads were chopped
+    assert _decompressed(cwd / got.output_file) == _decompressed(tmp_path / "jax" / want.output_file)
+    assert not list(tmp_path.rglob(".deepchopper_temp_*"))
+
+
 @pytest.mark.parametrize("variant", VARIANTS, ids=["ocq", "terminal", "internal", "min_read_len"])
 def test_fused_chop_variants_match_jax(engines, variant, tmp_path):
     jax_engine, port_engine = engines

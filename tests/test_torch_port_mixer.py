@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from deepchopper_tpu.ops.pallas_fft import mixer_fft_conv_bm as jax_mixer_bm
 from deepchopper_tpu.ops.pallas_fft import mixer_reference_xla
+from deepchopper_tpu_torch.ops import _build
 from deepchopper_tpu_torch.ops import mixer as port
 
 REL_TOL = 1e-5
@@ -94,6 +95,40 @@ def test_filter_spectrum_folds_bias_and_scale():
     want[:, 0] += b
     np.testing.assert_allclose(back[:, :16].numpy(), want.numpy(), atol=1e-5)
     np.testing.assert_allclose(back[:, 16:].numpy(), 0.0, atol=1e-5)
+
+
+class _OnCard:
+    """Stands for a tensor on card 0 (no card is needed to build it)."""
+
+    device = torch.device("cuda", 0)
+
+    def get_device(self) -> int:
+        return 0
+
+
+def test_launch_helper_refuses_a_cpu_tensor():
+    called = []
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        _build.launch(lambda *a: called.append(a) or 0, torch.zeros(2), 1, 2, what="stub")
+    assert not called
+
+
+@pytest.mark.parametrize("code", [0, 1, 700])
+def test_launch_helper_passes_the_current_stream_and_raises_on_an_error(monkeypatch, code):
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: 4096 + index)
+    monkeypatch.setattr(_build, "_current_device", lambda: 0)
+    called = []
+
+    def entry(*args):
+        called.append(args)
+        return code
+
+    if code:
+        with pytest.raises(RuntimeError, match=f"stub launch failed: cudaError {code}"):
+            _build.launch(entry, _OnCard(), 7, 8, what="stub")
+    else:
+        _build.launch(entry, _OnCard(), 7, 8, what="stub")
+    assert called == [(7, 8, 4096)]
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():
