@@ -26,10 +26,13 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      8192 and 32768 (torch.profiler).
    - the three selective-scan kernels at Caduceus's widths (Din = 512,
      N = 16), B = 2^17 // W, both directions, float32, and at the ragged
-     L = 1000: scan_fwd's y and scan_ckpt's states within 1e-5 of max|ref|,
-     scan_bwd's du, ddelta, dBp, dCp within 1e-5 and dA, dD (sums over B * L
-     terms) within 1e-4 of each one's max|ref|, bitwise repeatable; timed
-     beside their bounds (bytes, f32 flops, and exps at 16 a clock per SM).
+     L = 1000 and at the config's max_seq_len L = 131072 (B = 1): scan_fwd's
+     y and scan_ckpt's states within 1e-5 of max|ref|, scan_bwd's du,
+     ddelta, dBp, dCp within 1e-5 and dA, dD (sums over B * L terms) within
+     1e-4 of each one's max|ref|, scan_fwd and scan_bwd bitwise repeatable;
+     timed on the ladder beside their bounds (bytes, f32 flops, and exps at
+     16 a clock per SM), each width's line with scan_fwd's plan (channels a
+     block, segments).
    - the gated conv (gated_fwd, the unfused Hyena route) and the
      in_proj-fused mixer (mixer_inproj_fwd) at D = 256, B = 2, f32 (1e-4 of
      max|ref|) and bf16 (1e-2); the causal conv (conv_fwd) in f32 only. Then
@@ -514,6 +517,8 @@ def compare_scan(args, reverse: bool, where: str) -> dict[str, tuple[float, floa
     u, delta, A, Bp, Cp, D, dy = args
     out = {}
     y = scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+    if not torch.equal(y, scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)):
+        raise SmokeFailure(f"{where} y: two calls on the same inputs differ")
     torch.cuda.synchronize()
     out["scan_fwd"] = within(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse), 1e-5, f"{where} y")
     ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
@@ -552,8 +557,9 @@ def scan_bound(kind: str, batch: int, seq_len: int, exps_per_s: float) -> tuple[
 
 def phase_scan_kernels() -> list[dict]:
     """The scan kernels against their plain versions at every ladder width
-    (B = 2^17 // W) in both directions and at the ragged L = 1000; timed in
-    both directions, the plain versions in the forward direction."""
+    (B = 2^17 // W) in both directions, at the ragged L = 1000 and at the
+    config's max_seq_len 131072 (B = 1); timed on the ladder in both
+    directions, the plain versions in the forward direction."""
     import torch
 
     from deepchopper_tpu_torch.data.bucketing import default_buckets
@@ -565,12 +571,14 @@ def phase_scan_kernels() -> list[dict]:
     names = ("scan_fwd", "scan_ckpt", "scan_bwd")
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0} for k in names}
     widths = default_buckets(32768)
-    for seq_len in [*widths, 1000]:
+    for seq_len in [*widths, 1000, 131072]:
         batch = TOKENS_PER_BATCH // seq_len
         args = scan_inputs(batch, seq_len, seed=seq_len)
         u, delta, A, Bp, Cp, D, dy = args
+        plan = scan.scan_fwd_plan(batch, seq_len, SCAN_D_IN, SCAN_N)
         for reverse in (False, True):
-            where = f"W={seq_len:6d} B={batch:3d} {'rev' if reverse else 'fwd'}"
+            where = (f"W={seq_len:6d} B={batch:3d} {'rev' if reverse else 'fwd'} (scan_fwd plan: {plan.channels} "
+                     f"channels a block, {plan.segments} segments of {plan.seg_len})")  # fmt: skip
             errs = compare_scan(args, reverse, where)
             for k in names:
                 rows[k]["err"] = max(rows[k]["err"], errs[k][0])

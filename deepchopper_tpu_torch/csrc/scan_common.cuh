@@ -1,6 +1,7 @@
-// Device code shared by the selective-scan kernels (scan_fwd.cu, scan_bwd.cu).
+// Device code of the selective-scan kernels of scan_bwd.cu (scan_ckpt,
+// scan_bwd); scan_fwd.cu, laid out otherwise, shares only valid_shape.
 //
-// Layout of every scan kernel: one block per (batch row b, tile of DT
+// Layout of those kernels: one block per (batch row b, tile of DT
 // channels), one thread per (channel, state) of the tile, kThreads = DT * N
 // threads, thread index = channel * N + state. The N states of a channel are N
 // neighbouring lanes of one warp, so a sum over the states is log2(N)

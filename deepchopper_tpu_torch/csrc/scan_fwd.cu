@@ -11,91 +11,298 @@
 //                                  y[t] = sum_n Cp[t, n] h[t][n] + D u[t],  h = 0 before the walk.
 //   reverse != 0 walks t = L-1 .. 0 (flip(scan(flip(.))) without the flips).
 //
-// Design (scan_common.cuh). The TPU kernel walks L-chunks in grid order and
-// carries the (bt, N, Din) state in VMEM scratch; Hopper blocks run in no
-// order, so here one block owns a (batch row, 256 / N channels) slice of the
-// state for the whole walk and keeps it in registers, one (channel, state) per
-// thread: 32768 threads at the widest bucket (B = 4, Din = 512, N = 16). Each
-// step costs one exp, a few FMAs and log2(N) shuffles for y's sum over states.
-// A tile of 32 steps of u, delta, Bp, Cp is staged in shared memory; y leaves
-// through shared memory. Reverse walks the tiles, and the steps inside each
-// tile, from the end: a ragged last tile simply has fewer steps, so no padded
-// step exists in either direction.
+// What bounds it on an H100. Operations: Din * N exps a token on the
+// special-function units, 16 a clock per SM: 0.257 ms per 2^17 tokens at Din
+// 512, N 16 and 1.98 GHz. Bytes just below: u, delta read and y written once
+// (12 B a token-channel) plus Bp, Cp, 0.25 ms per 2^17 tokens at 3.35 TB/s.
 //
-// What bounds it on an H100. Bytes: u, delta read once, y written once (12 B
-// per token-channel) plus Bp, Cp: 6.3 KB a token at Din = 512, 0.25 ms per
-// 2^17 tokens at 3.35 TB/s. Operations: Din * N = 8192 exps a token on the
-// special-function units (16 a clock per SM): 0.26 ms per 2^17 tokens at 1.98
-// GHz. The two are about equal; the design reads each input once and never
-// writes the (B, L, Din, N) states, so what remains between it and the bound
-// is latency: the walk is sequential in L, and at the wide buckets only 128
-// blocks of 8 warps are in flight.
+// Design. The TPU kernel walks L-chunks in grid order and carries the
+// (bt, N, Din) state in VMEM scratch. Here one thread owns one channel of one
+// batch row: its N states h[n] and A[n] log2(e) live in registers, so a step
+// is, per state, one FMUL and one ex2.approx (exp(dt A) = exp2(dt A log2 e)),
+// an FMUL and an FFMA for h and an FFMA for y's sum over states, all inside
+// the thread: no shuffles and no lane doing another's work. A block takes
+// `channels` consecutive channels of one batch row. Its inputs move in tiles
+// of `tile` steps staged in shared memory by cp.async (u and delta as whole
+// 16-byte chunks of rows, Bp and Cp as N floats a step, read back as float4
+// broadcasts), double buffered: the next tile's copy is in flight while this
+// one is walked, one barrier a tile. y leaves straight from registers, a
+// coalesced row of the block's channels a step.
+//
+// Where batch x Din / channels blocks cannot fill the card (the wide buckets:
+// 16 blocks at B = 4, L = 32768), the wrapper's plan (ops/scan.py
+// `scan_fwd_plan`) splits L into `segments` runs of `seg_len` steps, a whole
+// number of tiles each, and there are two launches:
+//   1. scan_fwd_kernel<N, true> walks every segment but the last in walk order
+//      from h = 0 and writes its end state h_end and its sum of dt per channel
+//      to the scratch;
+//   2. scan_fwd_kernel<N, false> folds, in each (row, channel tile, segment)
+//      block, the segments before its own in walk order, first walked first:
+//      h <- exp2(A log2(e) sum(dt)) h + h_end, then walks its segment from that
+//      state and writes y.
+// Segmenting doubles the exps of that path and puts `segments` times more
+// blocks in flight. There are no atomics: every result is bitwise repeatable.
+// Reverse walks the segments, the tiles in each and the steps in each tile
+// from the end; a ragged last tile or segment simply has fewer steps.
+#include <cstdint>
+
 #include "scan_common.cuh"
 
 namespace scan {
 
-template <int N>
-__global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
-    const float* __restrict__ u, const float* __restrict__ delta, const float* __restrict__ A,
-    const float* __restrict__ Bp, const float* __restrict__ Cp, const float* __restrict__ Dsk, float* __restrict__ y,
-    int L, int din, long long b_sb, long long b_st, long long c_sb, long long c_st, int reverse) {
-  constexpr int DT = channels_per_block(N);
-  __shared__ float s_u[kChunk * DT], s_d[kChunk * DT], s_y[kChunk * DT];
-  __shared__ float s_b[kChunk * N], s_c[kChunk * N];
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kFwdMaxChannels = 128;  // threads a block: one channel each
+constexpr int kFwdMaxTile = 64;
+constexpr int kSmemLimit = 227 * 1024;
 
-  const int tiles = din / DT;
-  const int b = blockIdx.x / tiles;
-  const int d0 = (blockIdx.x - b * tiles) * DT;
-  const int dl = threadIdx.x / N, n = threadIdx.x - dl * N;
-  const float a_dn = A[(d0 + dl) * N + n];
-  const float dsk = Dsk[d0 + dl];
-  const long long base = (long long)b * L * din;
-  const int nl = (L + kChunk - 1) / kChunk;
+struct FwdArgs {
+  const float* u;
+  const float* delta;
+  const float* A;
+  const float* Bp;
+  const float* Cp;
+  const float* D;
+  float* y;
+  float* h_end;   // (B, segments, N, Din): end state of each segment walked from 0
+  float* dt_sum;  // (B, segments, Din): sum of dt over each segment
+  long long b_sb, b_st, c_sb, c_st;
+  int L, din, channels, tile, segments, seg_len, reverse, vec16;
+};
 
-  float h = 0.f;
-  for (int k = 0; k < nl; ++k) {
-    const int c = reverse ? nl - 1 - k : k;
-    const int t_lo = c * kChunk;
-    const int len = min(kChunk, L - t_lo);
-    load_rows<DT>(s_u, u, base, din, d0, t_lo, len);
-    load_rows<DT>(s_d, delta, base, din, d0, t_lo, len);
-    load_state_rows<N>(s_b, Bp, b_sb, b_st, b, t_lo, len);
-    load_state_rows<N>(s_c, Cp, c_sb, c_st, b, t_lo, len);
-    __syncthreads();
-    for (int j = 0; j < len; ++j) {
-      const int i = reverse ? len - 1 - j : j;
-      const float dt = s_d[i * DT + dl], ut = s_u[i * DT + dl];
-      h = expf(dt * a_dn) * h + (dt * ut) * s_b[i * N + n];
-      const float yv = sum_states<N>(s_c[i * N + n] * h);
-      if (n == 0) s_y[i * DT + dl] = yv + dsk * ut;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Floats of one staged tile: u, delta (tile x channels each), Bp, Cp (tile x N each).
+__host__ __device__ constexpr int tile_floats(int tile, int channels, int n) { return tile * (2 * channels + 2 * n); }
+
+// Copy steps [t_lo, t_lo + len) of the block's rows into one tile buffer:
+// u and delta rows (channels floats each, 16-byte chunks when aligned), Bp
+// and, for the y walk, Cp (N floats a step). Issues one cp.async group.
+template <int N, bool kEnd>
+__device__ __forceinline__ void stage_tile(float* buf, const FwdArgs& p, long long row0, int b, int d0, int t_lo,
+                                           int len) {
+  const int cb = p.channels;
+  float* su = buf;
+  float* sd = su + p.tile * cb;
+  float* sb = sd + p.tile * cb;
+  float* sc = sb + p.tile * N;
+  const int tid = threadIdx.x;
+  if (p.vec16) {
+    const int q = cb / 4;
+    for (int k = tid; k < len * q; k += cb) {
+      const int i = k / q, c4 = (k - i * q) * 4;
+      const long long g = (row0 + t_lo + i) * p.din + d0 + c4;
+      cp_async16(su + i * cb + c4, p.u + g);
+      cp_async16(sd + i * cb + c4, p.delta + g);
     }
-    __syncthreads();
-    // The next tile's loads write s_u.. only; s_y is next written after its
-    // barrier, by which time these stores have read it.
-    store_rows<DT>(y, s_y, base, din, d0, t_lo, len);
+  } else {
+    for (int k = tid; k < len * cb; k += cb) {
+      const int i = k / cb, c = k - i * cb;
+      const long long g = (row0 + t_lo + i) * p.din + d0 + c;
+      cp_async4(su + k, p.u + g);
+      cp_async4(sd + k, p.delta + g);
+    }
+  }
+  for (int k = tid; k < len * N; k += cb) {
+    const int i = k / N, n = k - i * N;
+    cp_async4(sb + k, p.Bp + b * p.b_sb + (long long)(t_lo + i) * p.b_st + n);
+    if (!kEnd) cp_async4(sc + k, p.Cp + b * p.c_sb + (long long)(t_lo + i) * p.c_st + n);
+  }
+  cp_async_commit();
+}
+
+// The entry state of segment s: the end states of the segments walked before
+// it, first walked first, each carried through the later ones'
+// exp2(a2 sum(dt)).
+template <int N>
+__device__ __forceinline__ void fold_entry(float (&h)[N], const float (&a2)[N], const FwdArgs& p, int b, int s,
+                                           int d) {
+  const int count = p.reverse ? p.segments - 1 - s : s;
+  // The loads of an entry do not wait on h: unrolled, several are in flight.
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    const int k = p.reverse ? p.segments - 1 - j : j;
+    const long long e = (long long)b * p.segments + k;
+    const float g = p.dt_sum[e * p.din + d];
+#pragma unroll
+    for (int n = 0; n < N; ++n) h[n] = fmaf(exp2_approx(a2[n] * g), h[n], p.h_end[(e * N + n) * p.din + d]);
   }
 }
 
+// One step of the N states: h <- exp2(dt a2) h + (dt u) Bp; for the y walk
+// also y += Cp h, states in order.
+template <int N, bool kEnd>
+__device__ __forceinline__ float walk_step(float (&h)[N], const float (&a2)[N], float dt, float bu,
+                                           const float* sb, const float* sc) {
+  const float4* bq = reinterpret_cast<const float4*>(sb);
+  const float4* cq = reinterpret_cast<const float4*>(sc);
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 bv = bq[q];
+    h[4 * q + 0] = fmaf(exp2_approx(dt * a2[4 * q + 0]), h[4 * q + 0], bu * bv.x);
+    h[4 * q + 1] = fmaf(exp2_approx(dt * a2[4 * q + 1]), h[4 * q + 1], bu * bv.y);
+    h[4 * q + 2] = fmaf(exp2_approx(dt * a2[4 * q + 2]), h[4 * q + 2], bu * bv.z);
+    h[4 * q + 3] = fmaf(exp2_approx(dt * a2[4 * q + 3]), h[4 * q + 3], bu * bv.w);
+    if (!kEnd) {
+      const float4 cv = cq[q];
+      acc = fmaf(cv.x, h[4 * q + 0], acc);
+      acc = fmaf(cv.y, h[4 * q + 1], acc);
+      acc = fmaf(cv.z, h[4 * q + 2], acc);
+      acc = fmaf(cv.w, h[4 * q + 3], acc);
+    }
+  }
+  return acc;
+}
+
+// kEnd: walk a segment from h = 0 and write its end state and sum of dt.
+// Otherwise: fold the segment's entry state, walk it and write y.
+template <int N, bool kEnd>
+__global__ void __launch_bounds__(kFwdMaxChannels, 4) scan_fwd_kernel(const FwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  const int cb = p.channels;
+  const int ctiles = p.din / cb;
+  const int walked = kEnd ? p.segments - 1 : p.segments;
+  const int sw = blockIdx.x % walked;
+  const int ct = (blockIdx.x / walked) % ctiles;
+  const int b = blockIdx.x / (walked * ctiles);
+  const int s = kEnd && p.reverse ? sw + 1 : sw;  // pass 1 skips the last segment of the walk
+  const int tid = threadIdx.x;
+  const int d0 = ct * cb, d = d0 + tid;
+  const int lo = s * p.seg_len, hi = min(p.L, lo + p.seg_len);
+  const long long row0 = (long long)b * p.L;
+
+  float a2[N], h[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    a2[n] = p.A[d * N + n] * kLog2e;
+    h[n] = 0.f;
+  }
+  if (!kEnd) fold_entry<N>(h, a2, p, b, s, d);
+  const float dsk = kEnd ? 0.f : p.D[d];
+
+  const int per_buf = tile_floats(p.tile, cb, N);
+  const int nt = (hi - lo + p.tile - 1) / p.tile;
+  auto tile_lo = [&](int k) { return lo + (p.reverse ? nt - 1 - k : k) * p.tile; };
+  stage_tile<N, kEnd>(smem, p, row0, b, d0, tile_lo(0), min(p.tile, hi - tile_lo(0)));
+  float dsum = 0.f;
+  for (int k = 0; k < nt; ++k) {
+    const int t_lo = tile_lo(k), len = min(p.tile, hi - t_lo);
+    float* buf = smem + (k & 1) * per_buf;
+    cp_async_wait_all();
+    // Tile k has landed for every thread, and every thread is done with tile
+    // k - 1, whose buffer the next copy overwrites.
+    __syncthreads();
+    if (k + 1 < nt) {
+      const int n_lo = tile_lo(k + 1);
+      stage_tile<N, kEnd>(smem + ((k + 1) & 1) * per_buf, p, row0, b, d0, n_lo, min(p.tile, hi - n_lo));
+    }
+    const float* su = buf;
+    const float* sd = su + p.tile * cb;
+    const float* sb = sd + p.tile * cb;
+    const float* sc = sb + p.tile * N;
+    for (int j = 0; j < len; ++j) {
+      const int i = p.reverse ? len - 1 - j : j;
+      const float dt = sd[i * cb + tid], ut = su[i * cb + tid];
+      const float acc = walk_step<N, kEnd>(h, a2, dt, dt * ut, sb + i * N, sc + i * N);
+      if (kEnd) {
+        dsum += dt;
+      } else {
+        p.y[(row0 + t_lo + i) * p.din + d] = fmaf(dsk, ut, acc);
+      }
+    }
+  }
+  if (kEnd) {
+    const long long e = (long long)b * p.segments + s;
+#pragma unroll
+    for (int n = 0; n < N; ++n) p.h_end[(e * N + n) * p.din + d] = h[n];
+    p.dt_sum[e * p.din + d] = dsum;
+  }
+}
+
+template <typename Kernel>
+static cudaError_t launch_one(Kernel kernel, int blocks, const FwdArgs& p, size_t smem, cudaStream_t stream) {
+  // All of the SM's shared memory to the blocks: the tiles decide how many fit.
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, p.channels, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int N>
-static int launch(const float* u, const float* delta, const float* A, const float* Bp, const float* Cp,
-                  const float* D, float* y, int batch, int L, int din, long long b_sb, long long b_st, long long c_sb,
-                  long long c_st, int reverse, cudaStream_t stream) {
-  const int blocks = batch * (din / channels_per_block(N));
-  scan_fwd_kernel<N><<<blocks, kThreads, 0, stream>>>(u, delta, A, Bp, Cp, D, y, L, din, b_sb, b_st, c_sb, c_st,
-                                                       reverse);
-  return (int)cudaGetLastError();
+static int launch(const FwdArgs& p, int batch, cudaStream_t stream) {
+  const size_t smem = 2 * sizeof(float) * (size_t)tile_floats(p.tile, p.channels, N);
+  const int row_blocks = batch * (p.din / p.channels);
+  if (p.segments > 1) {
+    const cudaError_t err = launch_one(scan_fwd_kernel<N, true>, row_blocks * (p.segments - 1), p, smem, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_one(scan_fwd_kernel<N, false>, row_blocks * p.segments, p, smem, stream);
+}
+
+// The plan the kernels take (ops/scan.py `scan_fwd_plan` makes it).
+inline bool valid_plan(int L, int din, int n, int channels, int tile, int segments, int seg_len) {
+  return channels > 0 && channels <= kFwdMaxChannels && channels % 16 == 0 && din % channels == 0 && tile > 0 &&
+         tile <= kFwdMaxTile && seg_len > 0 && seg_len % tile == 0 && segments == (L + seg_len - 1) / seg_len &&
+         2 * sizeof(float) * (size_t)tile_floats(tile, channels, n) <= (size_t)kSmemLimit;
 }
 
 }  // namespace scan
 
+// `scratch`: (B, segments, Din, N + 1) floats when segments > 1 (the end
+// states, then the sums of dt), else unused.
 extern "C" int scan_fwd(const float* u, const float* delta, const float* A, const float* Bp, const float* Cp,
-                        const float* D, float* y, int batch, int L, int din, int n, long long b_sb, long long b_st,
-                        long long c_sb, long long c_st, int reverse, void* stream) {
+                        const float* D, float* y, float* scratch, int batch, int L, int din, int n, long long b_sb,
+                        long long b_st, long long c_sb, long long c_st, int reverse, int channels, int tile,
+                        int segments, int seg_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!scan::valid_shape(batch, L, din, n)) return (int)cudaErrorInvalidValue;
+  if (!scan::valid_shape(batch, L, din, n) || !scan::valid_plan(L, din, n, channels, tile, segments, seg_len) ||
+      (segments > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  scan::FwdArgs p;
+  p.u = u;
+  p.delta = delta;
+  p.A = A;
+  p.Bp = Bp;
+  p.Cp = Cp;
+  p.D = D;
+  p.y = y;
+  p.h_end = scratch;
+  p.dt_sum = scratch == nullptr ? nullptr : scratch + (long long)batch * segments * n * din;
+  p.b_sb = b_sb;
+  p.b_st = b_st;
+  p.c_sb = c_sb;
+  p.c_st = c_st;
+  p.L = L;
+  p.din = din;
+  p.channels = channels;
+  p.tile = tile;
+  p.segments = segments;
+  p.seg_len = seg_len;
+  p.reverse = reverse;
+  p.vec16 = ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(delta)) & 15) == 0;
   switch (n) {
-    case 8: return scan::launch<8>(u, delta, A, Bp, Cp, D, y, batch, L, din, b_sb, b_st, c_sb, c_st, reverse, s);
-    case 16: return scan::launch<16>(u, delta, A, Bp, Cp, D, y, batch, L, din, b_sb, b_st, c_sb, c_st, reverse, s);
+    case 8: return scan::launch<8>(p, batch, s);
+    case 16: return scan::launch<16>(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,7 +14,8 @@ with h = 0 before the first step; `reverse=True` walks from t = L-1 down to
 
 It is differentiable through `ScanFn`, the counterpart of the JAX package's
 `custom_vjp`: the forward saves only its inputs. On CUDA tensors the forward
-launches `csrc/scan_fwd.cu` (the port of `_scan_kernel`) and the backward
+launches `csrc/scan_fwd.cu` (the port of `_scan_kernel`) on the plan of
+`scan_fwd_plan`, and the backward
 launches `scan_ckpt` then `scan_bwd` of `csrc/scan_bwd.cu` (the ports of
 `_scan_ckpt_kernel` and `_scan_bwd_kernel`): the first stores the state at
 the entry of every `CKPT_CHUNK`-step chunk, the second walks the chunks
@@ -28,8 +29,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
+
+from . import _build
 
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the main path ran
@@ -39,8 +44,9 @@ launch_counts: dict[str, int] = {"scan_fwd": 0, "scan_ckpt": 0, "scan_bwd": 0}
 # Steps per checkpoint chunk: fixed by the kernels (`kChunk` in
 # csrc/scan_common.cuh). Chunk c covers t in [c * CKPT_CHUNK, (c + 1) * CKPT_CHUNK).
 CKPT_CHUNK = 32
-# States the kernels take (the flagship's 16, the tiny configs' 8): one
-# thread per (channel, state), 256 a block.
+# States the kernels take (the flagship's 16, the tiny configs' 8). The
+# backward kernels run one thread per (channel, state), 256 a block, so Din
+# must be a multiple of 256 / N.
 KERNEL_STATES = (8, 16)
 _THREADS = 256
 # Tokens (batch rows x steps) per chunk of the plain scan: bounds its
@@ -76,6 +82,78 @@ def _chunk_states(u, delta, A, Bp, h0) -> torch.Tensor:
     b = (delta * u)[..., None] * Bp[:, :, None, :]
     ca, cb = _affine_prefix(a, b)
     return ca * h0[:, None] + cb
+
+
+# -- the forward kernel's plan ---------------------------------------------------
+
+# The card's SMs (an H100 SXM). The plan depends on the shape alone, never on
+# the device it runs on.
+PLAN_SMS = 132
+FWD_MAX_CHANNELS = 128  # channels (threads) a block: `kFwdMaxChannels` in csrc/scan_fwd.cu
+FWD_TILE = 16  # steps a staged tile
+# Warps of one walk at or above which L is not split, and the warps a split
+# walk aims for: about 1.6 waves of the 5 blocks of 4 warps an SM holds, so
+# that blocks whose folds differ in length even out. From a sweep of plans
+# on an H100 (scripts/torch_scan_ab.py --sweep, PERF.md §6): at 512
+# warps (W 4096) one segment beat any split, at 400 (W 5120) splits won.
+FWD_FILL_WARPS = 512
+FWD_SEG_WARPS = 32 * PLAN_SMS
+
+
+class ScanFwdPlan(NamedTuple):
+    """How `csrc/scan_fwd.cu` cuts a (B, L, Din, N) scan: blocks of
+    `channels` channels of one batch row, tiles of `tile` steps, and L split
+    into `segments` runs of `seg_len` steps (a whole number of tiles; the
+    last run may be shorter). `block_target` is the grid the plan aims for."""
+
+    channels: int
+    tile: int
+    segments: int
+    seg_len: int
+    block_target: int
+
+    def blocks(self, batch: int, d_in: int) -> int:
+        """Blocks of the launch that writes y."""
+        return batch * (d_in // self.channels) * self.segments
+
+    def scratch_floats(self, batch: int, d_in: int, n: int) -> int:
+        """Floats of the segment scratch: each segment's end states and sums of dt."""
+        return batch * self.segments * d_in * (n + 1) if self.segments > 1 else 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _segment_plan(seq_len: int, channels: int, tile: int, segments: int, block_target: int) -> ScanFwdPlan:
+    """L in at most `segments` runs of equal whole tiles (the last run shorter)."""
+    seg_len = _cdiv(_cdiv(seq_len, segments), tile) * tile
+    return ScanFwdPlan(channels, tile, _cdiv(seq_len, seg_len), seg_len, block_target)
+
+
+@functools.lru_cache(maxsize=4096)
+def scan_fwd_plan(batch: int, seq_len: int, d_in: int, n: int) -> ScanFwdPlan:
+    """The forward kernel's plan for a (B, L, Din, N) scan, from the shape
+    alone. Blocks take the most channels up to FWD_MAX_CHANNELS that divide
+    Din. Where the blocks of whole rows hold FWD_FILL_WARPS warps, L is one
+    segment. Below that, L is split into the fewest segments of whole tiles
+    that bring the grid to FWD_SEG_WARPS warps, but into no more than
+    isqrt(L): a block folds up to one end state per segment before its walk,
+    so a segment is kept at least about as long as the count."""
+    if n not in KERNEL_STATES or d_in % (_THREADS // n) or batch < 1 or seq_len < 1:
+        raise ValueError(f"scan_fwd_plan: no plan for (B={batch}, L={seq_len}, Din={d_in}, N={n})")
+    channels = next(c for c in (FWD_MAX_CHANNELS, 64, 32, 16) if d_in % c == 0)
+    warps = _cdiv(channels, 32)
+    row_blocks = batch * (d_in // channels)
+    if row_blocks * warps >= FWD_FILL_WARPS:
+        return _segment_plan(seq_len, channels, FWD_TILE, 1, _cdiv(FWD_FILL_WARPS, warps))
+    target = _cdiv(FWD_SEG_WARPS, warps)
+    most = max(1, math.isqrt(seq_len))
+    for segments in range(min(_cdiv(target, row_blocks), most), most + 1):
+        plan = _segment_plan(seq_len, channels, FWD_TILE, segments, target)
+        if row_blocks * plan.segments >= target:
+            break
+    return plan
 
 
 def _plain_chunk(batch: int, chunk: int | None) -> int:
@@ -172,19 +250,15 @@ def scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse: bool = False, chunk:
 
 @functools.lru_cache(maxsize=None)
 def _fwd_lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("scan_fwd.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scan_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [i64] * 4 + [i32, ptr]
+    lib.scan_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 4 + [i32] * 5 + [ptr]
     lib.scan_fwd.restype = i32
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("scan_bwd.cu")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.scan_ckpt.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 2 + [i32, ptr]
@@ -237,22 +311,33 @@ def _nl(seq_len: int) -> int:
 
 
 def scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse: bool = False) -> torch.Tensor:
-    """Launch `csrc/scan_fwd.cu` on the current stream (no synchronise)."""
+    """Launch `csrc/scan_fwd.cu` on the current stream (no synchronise), on
+    the plan of `scan_fwd_plan`. A split plan makes two launches (the
+    segments' end states, then y); the call counts as one launch."""
     _check_kernel_args(u, delta, A, Bp, Cp, D)
     batch, seq_len, d_in = u.shape
-    a, dsk = A.contiguous(), D.contiguous()
     y = torch.empty_like(u)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    with torch.cuda.device(u.device):
-        err = _fwd_lib().scan_fwd(
-            u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), dsk.data_ptr(), y.data_ptr(),
-            batch, seq_len, d_in, a.shape[1], Bp.stride(0), Bp.stride(1), Cp.stride(0), Cp.stride(1),
-            int(reverse), stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"scan_fwd launch failed: cudaError {err} at (B={batch}, L={seq_len}, Din={d_in})")
+    _scan_fwd_launch(u, delta, A, Bp, Cp, D, y, reverse, scan_fwd_plan(batch, seq_len, d_in, A.shape[1]))
     launch_counts["scan_fwd"] += 1
     return y
+
+
+def _scan_fwd_launch(u, delta, A, Bp, Cp, D, y, reverse: bool, plan: ScanFwdPlan) -> None:
+    """The kernel on checked arguments and a given plan (the wrapper's, or
+    another in a timing script)."""
+    batch, seq_len, d_in = u.shape
+    a, dsk = A.contiguous(), D.contiguous()
+    n = a.shape[1]
+    floats = plan.scratch_floats(batch, d_in, n)
+    scratch = torch.empty(floats, dtype=torch.float32, device=u.device) if floats else None
+    _build.launch(
+        _fwd_lib().scan_fwd, u,
+        u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), dsk.data_ptr(), y.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        batch, seq_len, d_in, n, Bp.stride(0), Bp.stride(1), Cp.stride(0), Cp.stride(1), int(reverse),
+        plan.channels, plan.tile, plan.segments, plan.seg_len,
+        what=f"scan_fwd at (B={batch}, L={seq_len}, Din={d_in})",
+    )  # fmt: skip
 
 
 def scan_ckpt_cuda(u, delta, A, Bp, reverse: bool = False) -> torch.Tensor:
@@ -262,14 +347,12 @@ def scan_ckpt_cuda(u, delta, A, Bp, reverse: bool = False) -> torch.Tensor:
     batch, seq_len, d_in = u.shape
     a = A.contiguous()
     ckpt = torch.empty((batch, _nl(seq_len), a.shape[1], d_in), dtype=torch.float32, device=u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    with torch.cuda.device(u.device):
-        err = _bwd_lib().scan_ckpt(
-            u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), ckpt.data_ptr(),
-            batch, seq_len, d_in, a.shape[1], Bp.stride(0), Bp.stride(1), int(reverse), stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"scan_ckpt launch failed: cudaError {err} at (B={batch}, L={seq_len}, Din={d_in})")
+    _build.launch(
+        _bwd_lib().scan_ckpt, u,
+        u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), ckpt.data_ptr(),
+        batch, seq_len, d_in, a.shape[1], Bp.stride(0), Bp.stride(1), int(reverse),
+        what=f"scan_ckpt at (B={batch}, L={seq_len}, Din={d_in})",
+    )  # fmt: skip
     launch_counts["scan_ckpt"] += 1
     return ckpt
 
@@ -290,16 +373,14 @@ def scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse: bool = False):
     d_a, d_d = torch.empty_like(a), torch.empty_like(dsk)
     lib = _bwd_lib()
     scratch = torch.empty(lib.scan_bwd_scratch_floats(batch, seq_len, d_in, n), dtype=torch.float32, device=u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    with torch.cuda.device(u.device):
-        err = lib.scan_bwd(
-            u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), dsk.data_ptr(),
-            dy.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(),
-            du.data_ptr(), ddelta.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), d_a.data_ptr(), d_d.data_ptr(),
-            batch, seq_len, d_in, n, Bp.stride(0), Bp.stride(1), Cp.stride(0), Cp.stride(1), int(reverse), stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"scan_bwd launch failed: cudaError {err} at (B={batch}, L={seq_len}, Din={d_in})")
+    _build.launch(
+        lib.scan_bwd, u,
+        u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), dsk.data_ptr(),
+        dy.data_ptr(), ckpt.data_ptr(), scratch.data_ptr(),
+        du.data_ptr(), ddelta.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), d_a.data_ptr(), d_d.data_ptr(),
+        batch, seq_len, d_in, n, Bp.stride(0), Bp.stride(1), Cp.stride(0), Cp.stride(1), int(reverse),
+        what=f"scan_bwd at (B={batch}, L={seq_len}, Din={d_in})",
+    )  # fmt: skip
     launch_counts["scan_bwd"] += 1
     return du, ddelta, d_a, dbp, dcp, d_d
 

@@ -134,8 +134,11 @@ def _rel(got, want):
 
 
 # (B, L, Din, N): N = 16 at the flagship's Din; N = 8 (the tiny configs);
-# L = 1, 31, 33 and 1000 are ragged against the 32-step tiles.
-SCAN_SHAPES = [(2, 1000, 512, 16), (3, 33, 64, 8), (1, 31, 128, 8), (2, 1, 64, 16), (4, 4096, 512, 16)]
+# L = 1, 31, 33 and 1000 are ragged against the 32-step tiles. scan_fwd splits
+# L into segments (ops/scan.scan_fwd_plan) at 4096, 20000 (a ragged last
+# segment) and 32768 (the widest bucket).
+SCAN_SHAPES = [(2, 1000, 512, 16), (3, 33, 64, 8), (1, 31, 128, 8), (2, 1, 64, 16), (4, 4096, 512, 16),
+               (1, 20000, 512, 16), (4, 32768, 512, 16)]  # fmt: skip
 
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
@@ -160,6 +163,18 @@ def test_scan_kernels_match_plain(cuda, shape, reverse):
         assert _rel(g, w) <= tol, name
 
 
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_fwd_is_bitwise_repeatable(cuda, shape, reverse):
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, _dy = _scan_inputs(*shape, cuda, seed=shape[1] + 1)
+    first = scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+    second = scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)  # no atomics; segment end states folded in a fixed order
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gradient_through_scan_fn_on_the_card(cuda, reverse):
     from deepchopper_tpu_torch.ops import scan
@@ -174,6 +189,25 @@ def test_gradient_through_scan_fn_on_the_card(cuda, reverse):
     assert scan.launch_counts == {"scan_fwd": 1, "scan_ckpt": 1, "scan_bwd": 1}
     for leaf, want in zip(leaves, scan.scan_bwd_reference(*args, dy, reverse)):
         assert _rel(leaf.grad, want) <= 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_fwd_takes_rows_off_16_byte_alignment(cuda, reverse):
+    """Contiguous u and delta that start 4 bytes past an alignment: the
+    kernel stages them in 4-byte copies in place of 16-byte ones."""
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, _dy = _scan_inputs(2, 300, 64, 16, cuda, seed=9)
+    shifted = []
+    for t in (u, delta):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in shifted)
+    y = scan.scan_fwd_cuda(shifted[0], shifted[1], A, Bp, Cp, D, reverse)
+    torch.cuda.synchronize()
+    assert _rel(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)) <= 1e-5
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(cuda):
