@@ -1,15 +1,14 @@
-// Device code of the selective-scan kernels of scan_bwd.cu (scan_ckpt,
-// scan_bwd); scan_fwd.cu, laid out otherwise, shares only valid_shape.
+// Device code shared by the selective-scan kernels: valid_shape, exp2 on the
+// special-function units and the cp.async helpers (scan_fwd.cu, scan_bwd.cu's
+// scan_bwd), and the row loads of scan_bwd.cu's scan_ckpt.
 //
-// Layout of those kernels: one block per (batch row b, tile of DT
+// Layout of scan_bwd.cu's kernels: one block per (batch row b, tile of DT
 // channels), one thread per (channel, state) of the tile, kThreads = DT * N
-// threads, thread index = channel * N + state. The N states of a channel are N
-// neighbouring lanes of one warp, so a sum over the states is log2(N)
-// xor-shuffles. The block walks the whole sequence in tiles of kChunk steps
-// (absolute tiles: tile c covers t in [c kChunk, (c+1) kChunk)); a tile's
-// inputs are staged in shared memory once and its outputs leave through shared
-// memory, so global memory is read and written in rows of DT (or N) floats.
-// The state h of a thread lives in a register for the whole walk.
+// threads, thread index = channel * N + state. The block walks the whole
+// sequence in tiles of kChunk steps (absolute tiles: tile c covers t in
+// [c kChunk, (c+1) kChunk)); a tile's inputs are staged in shared memory once,
+// so global memory is read in rows of DT (or N) floats. The state h of a
+// thread lives in a register for the whole walk.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +17,7 @@ namespace scan {
 
 constexpr int kThreads = 256;  // threads per block: DT channels x N states
 constexpr int kChunk = 32;     // steps per tile; also the checkpoint chunk (ops/scan.py CKPT_CHUNK)
+constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int channels_per_block(int n) { return kThreads / n; }
 
@@ -26,6 +26,25 @@ inline bool valid_shape(int batch, int L, int din, int n) {
   return batch > 0 && L > 0 && (n == 8 || n == 16) && din > 0 && din % channels_per_block(n) == 0;
 }
 
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
 // dst[i * DT + dl] = src[base + (t_lo + i) * din + d0 + dl] for i < len, dl < DT.
 template <int DT>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, long long base, int din, int d0,
@@ -33,16 +52,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   for (int k = threadIdx.x; k < len * DT; k += kThreads) {
     const int i = k / DT, dl = k - i * DT;
     dst[k] = src[base + (long long)(t_lo + i) * din + d0 + dl];
-  }
-}
-
-// The inverse of load_rows: a tile of DT channels back to (B, L, Din).
-template <int DT>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* src, long long base, int din, int d0,
-                                           int t_lo, int len) {
-  for (int k = threadIdx.x; k < len * DT; k += kThreads) {
-    const int i = k / DT, dl = k - i * DT;
-    dst[base + (long long)(t_lo + i) * din + d0 + dl] = src[k];
   }
 }
 
@@ -55,15 +64,6 @@ __device__ __forceinline__ void load_state_rows(float* dst, const float* __restr
     const int i = k / N, n = k - i * N;
     dst[k] = src[(long long)b * sb + (long long)(t_lo + i) * st + n];
   }
-}
-
-// Sum over the N states of a channel (N neighbouring lanes). Every lane of the
-// group gets the same bits: each butterfly step adds the same two values.
-template <int N>
-__device__ __forceinline__ float sum_states(float v) {
-#pragma unroll
-  for (int off = N / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace scan

@@ -50,7 +50,6 @@
 
 namespace scan {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kFwdMaxChannels = 128;  // threads a block: one channel each
 constexpr int kFwdMaxTile = 64;
 constexpr int kSmemLimit = 227 * 1024;
@@ -68,25 +67,6 @@ struct FwdArgs {
   long long b_sb, b_st, c_sb, c_st;
   int L, din, channels, tile, segments, seg_len, reverse, vec16;
 };
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 // Floats of one staged tile: u, delta (tile x channels each), Bp, Cp (tile x N each).
 __host__ __device__ constexpr int tile_floats(int tile, int channels, int n) { return tile * (2 * channels + 2 * n); }

@@ -248,18 +248,16 @@ def scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse: bool = False, chunk:
 # -- CUDA kernels -----------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_lib() -> ctypes.CDLL:
-    lib = _build.load("scan_fwd.cu")
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of scan_fwd.cu's C entry on a loaded build of it."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.scan_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 4 + [i32] * 5 + [ptr]
     lib.scan_fwd.restype = i32
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("scan_bwd.cu")
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of scan_bwd.cu's C entries on a loaded build of it."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.scan_ckpt.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 2 + [i32, ptr]
     lib.scan_ckpt.restype = i32
@@ -268,6 +266,16 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.scan_bwd_scratch_floats.argtypes = [i32] * 4
     lib.scan_bwd_scratch_floats.restype = i64
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib() -> ctypes.CDLL:
+    return bind_fwd(_build.load("scan_fwd.cu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    return bind_bwd(_build.load("scan_bwd.cu"))
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""The selective-scan forward kernel (`csrc/scan_fwd.cu`) of this checkout
-beside another checkout's, on one GPU, at every ladder width.
+"""A selective-scan kernel of this checkout beside other checkouts', on one
+GPU, at every ladder width.
 
-    python3 scripts/torch_scan_ab.py [--parent CHECKOUT] [--ptxas] [--sweep] [--out FILE]
+    python3 scripts/torch_scan_ab.py [--kernel fwd|bwd] [--parent CHECKOUT]... [--ptxas] [--sweep] [--out FILE]
 
 At each of the 17 bucket widths (Din 512, N 16, B = 2^17 // W, f32, the
 inputs of chip_smoke.py's scan phase), in both directions:
-- this checkout's `scan_fwd_cuda` against `selective_scan_reference` (within
-  1e-5 of max|ref|) and against itself (two calls bitwise equal);
-- with `--parent`, the other checkout's `csrc/scan_fwd.cu`, built here with
-  the same nvcc flags and called through its own C entry (the signature
-  before the plan arguments), held to the same reference; then both timed in
-  turns, parent, this, this, parent (CUDA events, 5 launches after 2 of
-  warm-up each), beside the bound of chip_smoke.py's `scan_bound`.
+- `--kernel fwd` (the default): this checkout's `scan_fwd_cuda` against
+  `selective_scan_reference` (within 1e-5 of max|ref|) and against itself
+  (two calls bitwise equal);
+- `--kernel bwd`: this checkout's `scan_bwd_cuda`, from `scan_ckpt_cuda`'s
+  checkpoints, against `scan_bwd_reference`: the max error of each of the
+  six gradients of its max|ref| (du, ddelta, dBp, dCp within 1e-5, dA, dD
+  within 1e-4) and two calls bitwise equal;
+- each `--parent` checkout's `csrc/scan_fwd.cu` or `csrc/scan_bwd.cu`
+  (`--parent` may be given more than once), built here with the same nvcc
+  flags and launched through this checkout's wrapper (its C entry has this
+  checkout's signature), held to the same reference; then it and this checkout's
+  kernel timed in turns, parent, this, this, parent (CUDA events, 5 launches
+  after 2 of warm-up each), beside the bound of chip_smoke.py's `scan_bound`.
+  Ladder totals for each direction close the run.
 `--ptxas` first prints nvcc's `-Xptxas -v` report (registers, spills, shared
-memory) for this checkout's kernels. `--sweep` also times other plans at
-each width (forward direction): channels a block, tile length and segment
-count. Prints the card's name and power limit; `--out` keeps the whole log.
-Exits non-zero without a GPU or if a check fails.
+memory) of the kernel's source in this checkout and in each parent.
+`--sweep` (fwd only) also times other plans at each width (forward
+direction): channels a block, tile length and segment count.
+`--train-step` (bwd only) then times chip_smoke.py's bf16 Caduceus train
+step at (64, 1024) and (2, 32768) with each parent's `scan_bwd` in turns
+with this checkout's, in one process on one model: only the library behind
+`ScanFn`'s backward changes (one warm-up step, then the mean of 3). Prints the
+card's name and power limit; `--out` keeps the whole log. Exits non-zero
+without a GPU or if a check fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import itertools
 import subprocess
@@ -33,6 +46,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 LOG: list[str] = []
+SOURCES = {"fwd": "scan_fwd.cu", "bwd": "scan_bwd.cu"}
 
 
 def say(line: str) -> None:
@@ -40,50 +54,54 @@ def say(line: str) -> None:
     LOG.append(line)
 
 
-def ptxas_report() -> None:
+def nvcc(src: Path, out: Path, verbose: bool = False) -> str:
+    """Build `src` into `out` with the port's flags; the compiler's log."""
     from deepchopper_tpu_torch.ops import _build
 
-    out = _build.BUILD_DIR / "ptxas-scan_fwd.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(_build.CSRC / "scan_fwd.cu")]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(out), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    say(f"nvcc -Xptxas -v scan_fwd.cu (exit {res.returncode}):")
-    for line in (res.stdout + res.stderr).splitlines():
-        if "scan_fwd_kernel" in line or "registers" in line or "spill" in line or "error" in line:
-            say("  " + line.strip())
     if res.returncode != 0:
-        raise SystemExit("nvcc failed on scan_fwd.cu")
+        raise SystemExit(f"nvcc failed on {src} (exit {res.returncode}):\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
 
 
-def parent_lib(checkout: Path) -> ctypes.CDLL:
-    """The other checkout's scan_fwd.cu, built with this checkout's flags."""
+def ptxas_report(checkout: Path, source: str, label: str) -> None:
     from deepchopper_tpu_torch.ops import _build
 
-    src = checkout / "deepchopper_tpu_torch" / "csrc" / "scan_fwd.cu"
-    out = _build.BUILD_DIR / "parent-scan_fwd.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)], capture_output=True,
-                         text=True, timeout=600)  # fmt: skip
-    if res.returncode != 0:
-        raise SystemExit(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
-    lib = ctypes.CDLL(str(out))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scan_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [i64] * 4 + [i32, ptr]
-    lib.scan_fwd.restype = i32
-    return lib
+    log = nvcc(checkout / "deepchopper_tpu_torch" / "csrc" / source, _build.BUILD_DIR / f"ptxas-{label}.so", True)
+    say(f"nvcc -Xptxas -v {source} of {label}:")
+    for line in log.splitlines():
+        if "entry function" in line or "registers" in line or "spill" in line or "error" in line:
+            say("  " + line.strip())
 
 
-def parent_call(lib, u, delta, A, Bp, Cp, D, reverse):
-    import torch
+def parent_lib(checkout: Path, kind: str, label: str) -> ctypes.CDLL:
+    """Another checkout's kernel source, built with this checkout's flags and
+    bound as this checkout's wrappers bind their own."""
+    from deepchopper_tpu_torch.ops import _build, scan
 
-    y = torch.empty_like(u)
-    batch, seq_len, d_in = u.shape
-    err = lib.scan_fwd(u.data_ptr(), delta.data_ptr(), A.data_ptr(), Bp.data_ptr(), Cp.data_ptr(), D.data_ptr(),
-                       y.data_ptr(), batch, seq_len, d_in, A.shape[1], Bp.stride(0), Bp.stride(1), Cp.stride(0),
-                       Cp.stride(1), int(reverse), torch.cuda.current_stream().cuda_stream)  # fmt: skip
-    if err != 0:
-        raise SystemExit(f"parent scan_fwd failed: cudaError {err}")
-    return y
+    out = _build.BUILD_DIR / f"ab-{label}-{kind}.so"
+    nvcc(checkout / "deepchopper_tpu_torch" / "csrc" / SOURCES[kind], out)
+    bind = scan.bind_fwd if kind == "fwd" else scan.bind_bwd
+    return bind(ctypes.PyDLL(str(out)))
+
+
+@contextlib.contextmanager
+def behind_wrappers(kind: str, lib):
+    """This checkout's `scan_{kind}_cuda` launching `lib`'s kernel (None: its
+    own): the other checkout runs through the same checks, allocation and
+    launch path."""
+    from deepchopper_tpu_torch.ops import scan
+
+    name = f"_{kind}_lib"
+    own = getattr(scan, name)
+    if lib is not None:
+        setattr(scan, name, lambda: lib)
+    try:
+        yield
+    finally:
+        setattr(scan, name, own)
 
 
 def rel_err(got, ref) -> float:
@@ -100,11 +118,84 @@ def sweep_plans(seq_len: int) -> list:
     return sorted(set(plans))
 
 
+def check_fwd(u, delta, A, Bp, Cp, D, reverse, where: str):
+    """This checkout's forward kernel checked: (the call, the reference, its error)."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+
+    new = lambda: scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)  # noqa: E731
+    y, again = new(), new()
+    ref = scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)
+    if not torch.equal(y, again):
+        raise SystemExit(f"{where}: two calls differ")
+    err = rel_err(y, ref)
+    if err > 1e-5:
+        raise SystemExit(f"{where}: err {err:.2e} > 1e-5 of max|ref|")
+    return new, ref, f"err {err:.2e}"
+
+
+def check_bwd(grads, ref, where: str, again=None) -> str:
+    """Each gradient against the plain version, within its limit; `again`, a
+    second call's, bitwise equal."""
+    import chip_smoke as cs
+    import torch
+
+    parts = []
+    for i, ((name, tol), g, r) in enumerate(zip(cs.SCAN_GRADS, grads, ref)):
+        if again is not None and not torch.equal(g, again[i]):
+            raise SystemExit(f"{where} {name}: two calls differ")
+        err = rel_err(g, r)
+        if err > tol:
+            raise SystemExit(f"{where} {name}: err {err:.2e} > {tol} of max|ref|")
+        parts.append(f"{name} {err:.1e}")
+    return " ".join(parts)
+
+
+def train_step_turns(libs, reps: int = 3) -> None:
+    """The Caduceus train step with each parent's scan_bwd.cu in turns with
+    this checkout's (parent, this, this, parent), ms a step."""
+    import time
+
+    import chip_smoke as cs
+    import torch
+
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+    from deepchopper_tpu_torch.train.step import make_optimizer, train_step
+
+    model = DeepChopper.new(cs.CADUCEUS, seed=0, device="cuda").train()
+    opt = make_optimizer(model.parameters(), 2e-4)
+
+    def run(lib, batch) -> float:
+        with behind_wrappers("bwd", lib):
+            train_step(model, opt, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = train_step(model, opt, batch)
+            float(out["loss"])
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    for shape in ((64, 1024), (2, 32768)):
+        batch = cs.training_batch(*shape, seed=9)
+        run(None, batch)  # first-use costs of this shape
+        for label, lib in libs:
+            p1, n1, n2, p2 = run(lib, batch), run(None, batch), run(None, batch), run(lib, batch)
+            say(f"train step {cs.CADUCEUS} {shape} bf16: this {(n1 + n2) / 2:.2f} ms ({n1:.2f}, {n2:.2f}), "
+                f"{label} {(p1 + p2) / 2:.2f} ms ({p1:.2f}, {p2:.2f})")  # fmt: skip
+        if not libs:
+            say(f"train step {cs.CADUCEUS} {shape} bf16: this {run(None, batch):.2f} ms")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, help="another checkout whose scan_fwd.cu to time beside this one")
+    parser.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd", help="scan_fwd.cu or scan_bwd.cu's scan_bwd")
+    parser.add_argument("--parent", type=Path, action="append", default=[],
+                        help="another checkout whose kernel to time beside this one (repeatable)")  # fmt: skip
     parser.add_argument("--ptxas", action="store_true", help="print nvcc's -Xptxas -v report first")
-    parser.add_argument("--sweep", action="store_true", help="also time other plans at each width")
+    parser.add_argument("--sweep", action="store_true", help="fwd: also time other plans at each width")
+    parser.add_argument("--train-step", action="store_true", help="bwd: also time the Caduceus train step in turns")
     parser.add_argument("--out", type=Path, help="write the whole log here")
     opts = parser.parse_args()
 
@@ -117,46 +208,62 @@ def main() -> int:
     from deepchopper_tpu_torch.data.bucketing import default_buckets
     from deepchopper_tpu_torch.ops import scan
 
+    kind = opts.kernel
+    source = SOURCES[kind]
     say(f"gpu: {cs.gpu_line()}")
+    labels = [p.resolve().name for p in opts.parent]
     if opts.ptxas:
-        ptxas_report()
-    lib = parent_lib(opts.parent) if opts.parent else None
+        ptxas_report(REPO, source, "this")
+        for label, checkout in zip(labels, opts.parent):
+            ptxas_report(checkout, source, label)
+    libs = [(label, parent_lib(checkout, kind, label)) for label, checkout in zip(labels, opts.parent)]
     exps_per_s = cs.sfu_rate()
-    totals = {"new": 0.0, "parent": 0.0, "bound": 0.0}
+    totals = {(label, rev): [0.0, 0.0] for label, _lib in libs for rev in (False, True)}  # [new, parent]
+    bound_total = 0.0
     for seq_len in default_buckets(32768):
         batch = cs.TOKENS_PER_BATCH // seq_len
-        u, delta, A, Bp, Cp, D, _dy = cs.scan_inputs(batch, seq_len, seed=seq_len)
+        u, delta, A, Bp, Cp, D, dy = cs.scan_inputs(batch, seq_len, seed=seq_len)
         plan = scan.scan_fwd_plan(batch, seq_len, cs.SCAN_D_IN, cs.SCAN_N)
-        bytes_ms, ops_ms, _ = cs.scan_bound("scan_fwd", batch, seq_len, exps_per_s)
+        bytes_ms, ops_ms, _ = cs.scan_bound(f"scan_{kind}", batch, seq_len, exps_per_s)
         bound = max(bytes_ms, ops_ms)
+        bound_total += bound
         y_fwd = None
         for reverse in (False, True):
-            new = lambda: scan.scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)  # noqa: E731
-            y, again = new(), new()
-            ref = scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)
-            if not torch.equal(y, again):
-                raise SystemExit(f"W={seq_len} reverse={reverse}: two calls differ")
-            err = rel_err(y, ref)
-            line = (f"W={seq_len:6d} B={batch:3d} {'rev' if reverse else 'fwd'} plan channels={plan.channels} "
-                    f"tile={plan.tile} segments={plan.segments} seg_len={plan.seg_len}: err {err:.2e}")  # fmt: skip
-            if err > 1e-5:
-                raise SystemExit(line + " > 1e-5 of max|ref|")
-            y_fwd = y if not reverse else y_fwd
-            if lib is not None:
-                old = lambda: parent_call(lib, u, delta, A, Bp, Cp, D, reverse)  # noqa: E731
-                old_err = rel_err(old(), ref)
-                p1, n1, n2, p2 = cs.time_ms(old), cs.time_ms(new), cs.time_ms(new), cs.time_ms(old)
+            where = f"W={seq_len:6d} B={batch:3d} {'rev' if reverse else 'fwd'}"
+            if kind == "fwd":
+                new, ref, errs = check_fwd(u, delta, A, Bp, Cp, D, reverse, where)
+                line = (f"{where} plan channels={plan.channels} tile={plan.tile} segments={plan.segments} "
+                        f"seg_len={plan.seg_len}: {errs}")  # fmt: skip
+                y_fwd = ref if not reverse else y_fwd
+            else:
+                ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+                new = lambda: scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse)  # noqa: E731
+                got, again = new(), new()
+                ref = scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)
+                line = f"{where}: this {check_bwd(got, ref, where, again)}"
+                del got, again
+            line += f" | bound {bound:.3f} ms"
+            for label, lib in libs:
+                with behind_wrappers(kind, lib):
+                    got = new()
+                    errs = f"err {rel_err(got, ref):.2e}" if kind == "fwd" else check_bwd(got, ref, f"{where} {label}")
+                del got
+
+                def timed(lib):
+                    with behind_wrappers(kind, lib):
+                        return cs.time_ms(new)
+
+                p1, n1, n2, p2 = timed(lib), timed(None), timed(None), timed(lib)
                 new_ms, old_ms = (n1 + n2) / 2, (p1 + p2) / 2
-                line += (f" (parent {old_err:.2e}) | new {new_ms:.3f} ms ({n1:.3f}, {n2:.3f}), parent {old_ms:.3f} ms "
-                         f"({p1:.3f}, {p2:.3f}), bound {bound:.3f} ms, new/bound {new_ms / bound:.2f}, "
-                         f"parent/new {old_ms / new_ms:.2f}")  # fmt: skip
-                if not reverse:
-                    totals["new"] += new_ms
-                    totals["parent"] += old_ms
-                    totals["bound"] += bound
+                line += (f" | {label}: {errs}; this {new_ms:.3f} ms ({n1:.3f}, {n2:.3f}), {label} {old_ms:.3f} ms "
+                         f"({p1:.3f}, {p2:.3f}), this/bound {new_ms / bound:.2f}, {label}/this {old_ms / new_ms:.2f}")  # fmt: skip
+                totals[(label, reverse)][0] += new_ms
+                totals[(label, reverse)][1] += old_ms
             say(line)
             del ref
-        if opts.sweep:
+            if kind == "bwd":
+                del ckpt
+        if opts.sweep and kind == "fwd":
             timed = []
             for alt in sweep_plans(seq_len):
                 y = torch.empty_like(u)
@@ -168,11 +275,13 @@ def main() -> int:
             timed.sort(key=lambda r: r[0])
             say(f"  sweep W={seq_len}: " + "; ".join(f"{ms:.3f} c{p.channels} t{p.tile} s{p.segments}"
                                                       for ms, p in timed[:6]))  # fmt: skip
-        del u, delta, A, Bp, Cp, D, _dy
-    if lib is not None:
-        say(f"forward ladder total: new {totals['new']:.3f} ms, parent {totals['parent']:.3f} ms, bound "
-            f"{totals['bound']:.3f} ms; new/bound {totals['new'] / totals['bound']:.2f}, parent/new "
-            f"{totals['parent'] / totals['new']:.2f}")  # fmt: skip
+        del u, delta, A, Bp, Cp, D, dy
+    for (label, reverse), (new_ms, old_ms) in totals.items():
+        say(f"scan_{kind} ladder total, {'reverse' if reverse else 'forward'} direction: this {new_ms:.3f} ms, {label} "
+            f"{old_ms:.3f} ms, bound {bound_total:.3f} ms; this/bound {new_ms / bound_total:.2f}, {label}/this "
+            f"{old_ms / new_ms:.2f}")  # fmt: skip
+    if opts.train_step and kind == "bwd":
+        train_step_turns(libs)
     say(f"gpu: {cs.gpu_line()}")
     if opts.out:
         opts.out.parent.mkdir(parents=True, exist_ok=True)

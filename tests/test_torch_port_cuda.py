@@ -136,9 +136,11 @@ def _rel(got, want):
 # (B, L, Din, N): N = 16 at the flagship's Din; N = 8 (the tiny configs);
 # L = 1, 31, 33 and 1000 are ragged against the 32-step tiles. scan_fwd splits
 # L into segments (ops/scan.scan_fwd_plan) at 4096, 20000 (a ragged last
-# segment) and 32768 (the widest bucket).
+# segment) and 32768 (the widest bucket). (64, 1024) is the Caduceus train
+# step's batch at 2^16 tokens: 2048 blocks of scan_bwd.
 SCAN_SHAPES = [(2, 1000, 512, 16), (3, 33, 64, 8), (1, 31, 128, 8), (2, 1, 64, 16), (4, 4096, 512, 16),
-               (1, 20000, 512, 16), (4, 32768, 512, 16)]  # fmt: skip
+               (1, 20000, 512, 16), (4, 32768, 512, 16), (64, 1024, 512, 16)]  # fmt: skip
+SCAN_GRADS = (("du", 1e-5), ("ddelta", 1e-5), ("dA", 1e-4), ("dBp", 1e-5), ("dCp", 1e-5), ("dD", 1e-4))
 
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
@@ -157,8 +159,7 @@ def test_scan_kernels_match_plain(cuda, shape, reverse):
     assert _rel(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)) <= 1e-5
     assert _rel(ckpt, scan.scan_ckpt_reference(u, delta, A, Bp, reverse)) <= 1e-5
     want = scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)
-    for name, tol, g, a, w in zip(("du", "ddelta", "dA", "dBp", "dCp", "dD"), (1e-5, 1e-5, 1e-4, 1e-5, 1e-5, 1e-4),
-                                  grads, again, want):  # fmt: skip
+    for (name, tol), g, a, w in zip(SCAN_GRADS, grads, again, want):
         assert torch.equal(g, a), name  # no atomics: bitwise repeatable
         assert _rel(g, w) <= tol, name
 
@@ -191,6 +192,15 @@ def test_gradient_through_scan_fn_on_the_card(cuda, reverse):
         assert _rel(leaf.grad, want) <= 1e-4
 
 
+def _off_alignment(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_scan_fwd_takes_rows_off_16_byte_alignment(cuda, reverse):
     """Contiguous u and delta that start 4 bytes past an alignment: the
@@ -198,16 +208,24 @@ def test_scan_fwd_takes_rows_off_16_byte_alignment(cuda, reverse):
     from deepchopper_tpu_torch.ops import scan
 
     u, delta, A, Bp, Cp, D, _dy = _scan_inputs(2, 300, 64, 16, cuda, seed=9)
-    shifted = []
-    for t in (u, delta):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
-        view = flat[1:].view(t.shape)
-        view.copy_(t)
-        shifted.append(view)
-    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in shifted)
-    y = scan.scan_fwd_cuda(shifted[0], shifted[1], A, Bp, Cp, D, reverse)
+    y = scan.scan_fwd_cuda(_off_alignment(u), _off_alignment(delta), A, Bp, Cp, D, reverse)
     torch.cuda.synchronize()
     assert _rel(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)) <= 1e-5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_takes_rows_off_16_byte_alignment(cuda, reverse):
+    """Contiguous u, delta and dy that start 4 bytes past an alignment:
+    scan_bwd stages them in 4-byte copies in place of 16-byte ones."""
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, dy = _scan_inputs(2, 300, 64, 16, cuda, seed=10)
+    ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+    grads = scan.scan_bwd_cuda(_off_alignment(u), _off_alignment(delta), A, Bp, Cp, D, _off_alignment(dy), ckpt,
+                               reverse)  # fmt: skip
+    torch.cuda.synchronize()
+    for (name, tol), g, w in zip(SCAN_GRADS, grads, scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)):
+        assert _rel(g, w) <= tol, name
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(cuda):
