@@ -46,14 +46,19 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    ~300 seeded reads with the benchmark's length mix, including reads in the
    24576 and 32768 buckets, on hyenadna-small-32k-seqlen and on
    caduceus-ph_seqlen-131k_d_model-256_n_layer-16, both at full width and
-   depth. Checks that the shards hold every read with finite logits and that
-   the kernel ran once a layer (Hyena) or twice a layer (Caduceus) per
-   batch. Re-runs the widest and the fullest batch with the plain mixer or
+   depth. The engine dispatches each batch as its plan's (rows, width)
+   parts, each a CUDA graph captured at its first dispatch, whose eager run
+   is that dispatch's own. Checks that the shards hold every read with
+   finite logits and that the kernel ran once a layer (Hyena) or twice a
+   layer (Caduceus) per dispatch (graph replays count). Re-runs the widest and
+   the fullest batch with the plain mixer or
    scan on the card: in bfloat16 the argmax agrees on >= 99.9% of the
    positions outside the bf16 tie band, in float32 the logits agree within a
    fixed limit; a faulty version must fail both rules (see
-   check_against_plain). Reports reads/s and tokens/s after one batch of
-   warm-up. Hyena runs on each of its three mixer routes (default fused,
+   check_against_plain). Reports reads/s and tokens/s, lazy captures
+   included, beside the capture seconds and the padded tokens, then again for
+   a second pass on the same engine (its graphs captured).
+   Hyena runs on each of its three mixer routes (default fused,
    DEEPCHOPPER_FUSE_SHORT=0 unfused: gated_fwd once a layer and mixer_fwd
    never; DEEPCHOPPER_FUSE_INPROJ=1: mixer_inproj_fwd once a layer), and
    each route other than the default is also held, in f32, to the default
@@ -64,8 +69,15 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    kernel once; the chopped FASTQ must equal, byte for byte after
    decompression and under the same name, the two-phase path's (`predict
    --shard-format npz`, then `chop`; and through `pt`), and a control with
-   one read's labels flipped must differ. Prints reads/s, tokens/s, setup_s
-   and the stage breakdown.
+   one read's labels flipped must differ. Then a second pass on the CLI's
+   engine, its graphs captured: byte-identical to the first. Prints each
+   pass's reads/s, tokens/s, stage breakdown, capture seconds, dispatches
+   and padded tokens, and setup_s. At the widest and the fullest batch of
+   each family, bf16 and f32, every graph's output must equal the eager
+   step's bitwise, and a replay without the copy-in of the next inputs must
+   fail that rule (check_graph_replay). Then the flagship's whole ladder is
+   captured by `warmup()`: its peak and held device memory beside the eager
+   step's peak (phase_graph_memory).
 4. Train-step parity, each model and Hyena route: one float32 forward and
    backward with the kernels and with the plain version swapped in; every
    gradient leaf within a limit of its max, and a faulty backward must fail
@@ -80,7 +92,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    within 100 steps) and times the train step of each model: ms/step,
    tokens/s and peak memory.
 6. With `--profile`, profiles one warm `predict --fused-chop` pass of the
-   flagship, then one more pass of predict and three train steps of each
+   flagship (graphs replayed: the mixer kernel must show in its device
+   time), then one more pass of predict and three train steps of each
    model: device time by kernel and the device's busy share.
 7. Prints the kernel table as one JSON line (launches from the train runs;
    conv_fwd's from its op's run; setup's from the fused run) and, last, the
@@ -636,12 +649,12 @@ def _shard_read_names(ids) -> list[str]:
     return [bytes(int(c) for c in row[2 : 2 + row[0]]).decode("ascii") for row in ids]
 
 
-def bench_reads(work: Path) -> Path:
-    """~300 reads with the benchmark's length mix, one forced into each of
-    the 24576 and 32768 buckets."""
+def bench_reads(work: Path, n: int = N_READS) -> Path:
+    """n reads with the benchmark's length mix, one forced into each of the
+    24576 and 32768 buckets."""
     from deepchopper_tpu_torch.data.synth import read_lengths, synth_fastq
 
-    lengths = read_lengths(N_READS, seed=0)
+    lengths = read_lengths(n, seed=0)
     if not ((lengths >= 16400) & (lengths <= 24000)).any():
         lengths[0] = 20000
     if not ((lengths >= 24600) & (lengths <= 32000)).any():
@@ -651,11 +664,14 @@ def bench_reads(work: Path) -> Path:
 
 def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: dict[str, int], tag: str = "") -> dict:
     """`predict --random-init` through the CLI on `model` over the reads of
-    `fq`, after a warm-up batch, into `fq.parent / (model + tag) / "out"`;
-    the shards must hold every read with finite logits in the 24576 and
-    32768 buckets, and each kernel k of per_layer must have launched
-    per_layer[k] x n_layer times per batch (0 for a kernel the route must
-    not reach). Returns the launches."""
+    `fq` into `fq.parent / (model + tag) / "out"`; the shards must hold
+    every read with finite logits in the 24576 and 32768 buckets, and each
+    kernel k of per_layer must have launched per_layer[k] x n_layer times per
+    dispatch, replays of the engine's CUDA graphs included (a capture's eager
+    run is its first dispatch's own), plus as many per warm run (none here);
+    0 for a kernel the route must not reach. Then the CLI's engine predicts
+    the reads once more, every shape captured: the steady state's reads/s,
+    with the same launch identity. Returns the first run's launches."""
     import numpy as np
     import torch
 
@@ -671,7 +687,8 @@ def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: di
     out = work / "out"
     args = parser.parse_args([*base, "-o", str(out)])
     counts.reset()
-    stats = cli.predict(args)
+    with recorded_engines() as made:
+        stats = cli.predict(args)
     torch.cuda.synchronize()
     launches = counts.read()
 
@@ -691,18 +708,39 @@ def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: di
         raise SmokeFailure(f"{model}: shards hold {len(names)} reads ({len(set(names) & want)} of {N_READS} expected)")
     if not {24576, 32768} <= widths:
         raise SmokeFailure(f"{model}: large buckets missing from the run: widths {sorted(widths)}")
-    want = {k: n * n_layer * stats.batches for k, n in per_layer.items()}
+    runs = stats.dispatches + stats.warm_runs  # a lazy capture's eager run is its first dispatch's own
+    want = {k: n * n_layer * runs for k, n in per_layer.items()}
     got = {k: launches.get(k) for k in want}
-    if got != want or not any(want.values()) or stats.batches != len(shards):
-        raise SmokeFailure(f"{model}{tag}: launches {got} != {want} ({stats.batches} batches, {len(shards)} shards)")
+    if got != want or not any(want.values()) or stats.batches != len(shards) or not stats.captures:
+        raise SmokeFailure(f"{model}{tag}: launches {got} != {want} ({stats.batches} batches, {stats.dispatches} "
+                           f"dispatches, {stats.captures} captures, {len(shards)} shards)")  # fmt: skip
     print(
         f"predict {model}{tag}: {stats.reads} reads, {stats.tokens} tokens, {stats.batches} batches, widths "
-        f"{sorted(widths)}; launches {got} = per layer {per_layer} x {n_layer} layers x {stats.batches} batches"
+        f"{sorted(widths)}; launches {got} = per layer {per_layer} x {n_layer} layers x ({stats.dispatches} "
+        f"dispatches + {stats.warm_runs} warm runs; {stats.captures} CUDA graphs captured, each from its first "
+        f"dispatch's eager run); padded tokens {stats.padded_tokens} "
+        f"({stats.padded_tokens / stats.tokens:.3f} x the tokens)"
     )
     print(
         f"predict {model}{tag} throughput on {card}: {stats.reads / stats.elapsed_s:.1f} reads/s, "
-        f"{stats.tokens / stats.elapsed_s:.0f} tokens/s ({stats.elapsed_s:.3f} s, after one warm-up batch)"
+        f"{stats.tokens / stats.elapsed_s:.0f} tokens/s ({stats.elapsed_s:.3f} s, lazy captures included; compile_s "
+        f"{stats.compile_s:.3f}, the host's seconds in capturing {stats.captures} CUDA graphs)"
     )
+
+    # `stats` is the engine's own: it grows over the second pass.
+    before = (stats.reads, stats.tokens, stats.elapsed_s, stats.dispatches, stats.captures, stats.warm_runs)
+    counts.reset()
+    made[0].predict_file(fq, work / "again")
+    torch.cuda.synchronize()
+    again = counts.read()
+    reads, tokens, elapsed, dispatches, captures, warm_runs = (
+        now - was for now, was in zip((stats.reads, stats.tokens, stats.elapsed_s, stats.dispatches, stats.captures,
+                                       stats.warm_runs), before))  # fmt: skip
+    want = {k: n * n_layer * (dispatches + warm_runs) for k, n in per_layer.items()}
+    if {k: again.get(k) for k in want} != want or reads != N_READS:
+        raise SmokeFailure(f"{model}{tag} second pass: launches {again} != {want}, {reads} reads")
+    print(f"predict {model}{tag} second pass on the same engine, on {card}: {reads / elapsed:.1f} reads/s, "
+          f"{tokens / elapsed:.0f} tokens/s ({elapsed:.3f} s; {dispatches} dispatches, {captures} new captures)")
     return launches
 
 
@@ -917,6 +955,56 @@ def check_caduceus_against_plain(fq: Path, shard_dir: Path) -> None:
     second = ("plain at chunk 7", functools.partial(scan.selective_scan_reference, chunk=7))
     check_against_plain(fq, shard_dir, CADUCEUS, swapped_scan, scan.selective_scan_reference, second, control, control,
                         CADUCEUS_F32_LOGIT_TOL, CADUCEUS_TIE_BAND)  # fmt: skip
+
+
+def check_graph_replay(fq: Path, model_name: str) -> None:
+    """Hold the engine's CUDA graphs to its eager `step`, in bfloat16 and
+    float32, at every dispatch of the widest and of the fullest batch of the
+    main path's batching: each graph's output must equal, bitwise, the eager
+    step on the same padded (rows, width) inputs (the same kernels on the
+    same inputs). Control: the graph replayed without the copy-in of the next
+    inputs (the tokens shifted by one) must fail the rule."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch import default
+    from deepchopper_tpu_torch.data.fastq_module import iter_batches
+    from deepchopper_tpu_torch.infer.engine import PredictEngine, _pad_rows
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    batches = list(iter_batches(fq))
+    picks = sorted({max(range(len(batches)), key=lambda i: batches[i].input_ids.shape[k]) for k in (0, 1)})
+    base = DeepChopper.new(model_name, seed=0, device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        model = type(base)(dataclasses.replace(base.backbone_config, compute_dtype=dtype),
+                           dataclasses.replace(base.head_config, compute_dtype=dtype)).cuda()  # fmt: skip
+        model.load_state_dict(base.state_dict())
+        engine = PredictEngine(model, device="cuda")
+        for i in picks:
+            batch = batches[i]
+            b, w = batch.input_ids.shape
+            for start, rows, target in engine._plan_dispatches(b, w):
+                ids = _pad_rows(batch.input_ids[start : start + rows].astype(np.int8), target, default.TOKEN_PAD)
+                quals = _pad_rows(batch.quals_raw[start : start + rows], target, 0)
+                graph = engine._get_step((target, w))
+                got = graph(ids, quals).clone()
+                want = engine.step(torch.from_numpy(ids).cuda(), torch.from_numpy(quals).cuda())
+                shifted = np.roll(ids, 1, axis=1)
+                graph.replay()  # the control: the static inputs still hold `ids`
+                stale = graph.out.clone()
+                stale_err = (stale - engine.step(torch.from_numpy(shifted).cuda(), torch.from_numpy(quals).cuda())).abs()
+                err = (got - want).abs().max().item()
+                print(f"  graph replay vs eager step, {model_name} {dtype}, batch {i} ({b}, {w}) rows "
+                      f"{start}:{start + rows} of {target}: max-abs diff {err:.3e} (bitwise equal: "
+                      f"{torch.equal(got, want)}); control, no copy-in of the next inputs: max-abs diff "
+                      f"{stale_err.max().item():.3e}")  # fmt: skip
+                if not torch.equal(got, want):
+                    raise SmokeFailure(f"{model_name} {dtype}: graph replay at {(target, w)} differs from step by {err:.3e}")
+                if not stale_err.any():
+                    raise SmokeFailure(f"{model_name} {dtype}: the replay rule passes its control at {(target, w)}")
+        del engine, model
 
 
 # -- train ----------------------------------------------------------------------------
@@ -1282,9 +1370,9 @@ def time_train_step(card: str, model_name: str, shapes: tuple, reps: int) -> Non
         )
 
 
-def print_device_time(prof, wall_ms: float, what: str) -> None:
+def print_device_time(prof, wall_ms: float, what: str) -> list[tuple[str, float, int]]:
     """Device time by kernel of a torch.profiler run, and the device's busy
-    share of `wall_ms`."""
+    share of `wall_ms`; returns the (kernel, ms, count) rows."""
     from torch.autograd import DeviceType
 
     rows = [
@@ -1297,13 +1385,15 @@ def print_device_time(prof, wall_ms: float, what: str) -> None:
     print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%})")
     for key, ms, count in rows[:14]:
         print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:5d}  {key[:100]}")
+    return rows
 
 
 def phase_profile(fq: Path) -> None:
     """Profile (torch.profiler, CPU and CUDA activity), for each model, the
-    engine over the same reads once more and three bf16 train steps (Hyena
-    at (128, 1024), Caduceus at (64, 1024)): device time by kernel and the
-    device's busy share of the wall time (model set-up excluded)."""
+    engine over the same reads once more, its CUDA graphs captured by a pass
+    before, and three bf16 train steps (Hyena at (128, 1024), Caduceus at
+    (64, 1024)): device time by kernel and the device's busy share of the
+    wall time (model set-up excluded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1314,7 +1404,9 @@ def phase_profile(fq: Path) -> None:
     from deepchopper_tpu_torch.train.step import make_optimizer, train_step
 
     # The main path: one `predict --fused-chop` pass of the flagship over the
-    # reads, after a warm pass, as the CLI runs it (runtime_setup first).
+    # reads, after a warm pass that captured its CUDA graphs, as the CLI runs
+    # it (runtime_setup first). The hand-written mixer must show in the
+    # device time: the graphs launch it.
     engine = PredictEngine(DeepChopper.new(HYENA, seed=0, device="cuda"), return_labels=True, device="cuda")
     engine.runtime_setup()
     fused_predict_chop(engine, fq, ChopOptions(output_prefix=str(fq.parent / "profiled-warm")))
@@ -1324,14 +1416,21 @@ def phase_profile(fq: Path) -> None:
         stats = fused_predict_chop(engine, fq, ChopOptions(output_prefix=str(fq.parent / "profiled-fused")))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print_device_time(prof, wall_ms, f"predict --fused-chop {HYENA}")
+    rows = print_device_time(prof, wall_ms, f"predict --fused-chop {HYENA}")
     print(f"  under the profiler: elapsed_s {stats.elapsed_s:.3f}, device_s {stats.device_s:.3f} (the feed thread's "
-          f"wait on the model), encode_s {stats.encode_s:.3f}")  # fmt: skip
+          f"wait on the model), encode_s {stats.encode_s:.3f}, {stats.dispatches} dispatches, compile_s "
+          f"{stats.compile_s:.3f}")  # fmt: skip
+    mixer_rows = [(key, ms, count) for key, ms, count in rows if "mixer_fwd" in key]
+    if not mixer_rows or stats.compile_s:
+        raise SmokeFailure(f"profiled fused pass: no mixer_fwd kernel in the device time, or it captured "
+                           f"({stats.compile_s:.3f} s): {rows[:5]}")  # fmt: skip
+    for key, ms, count in mixer_rows:
+        print(f"  under graph replay: {key[:80]}: {ms:.3f} ms, {count} launches")
     del engine
 
     for name, shape in ((HYENA, (128, 1024)), (CADUCEUS, (64, 1024))):
         engine = PredictEngine(DeepChopper.new(name, seed=0, device="cuda"), device="cuda")
-        engine.predict_file(fq, fq.parent / "profiled", limit_batches=1)
+        engine.predict_file(fq, fq.parent / "profiled")  # captures the pass's CUDA graphs
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1837,6 +1936,46 @@ def phase_setup() -> dict:
     }  # fmt: skip
 
 
+def phase_graph_memory(card: str) -> None:
+    """Device memory of the engine's CUDA graphs on the flagship: peak and
+    held memory after `warmup()` captures the whole ladder (17 widths x 3 row
+    variants into one shared pool), beside the peak of eager `step` runs of
+    each width's full batch (what the eager predict needs), each from a reset
+    of the peak counter with no other engine alive."""
+    import gc
+
+    import torch
+
+    from deepchopper_tpu_torch.infer.engine import PredictEngine
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    engine = PredictEngine(DeepChopper.new(HYENA, seed=0, device="cuda"), return_labels=True, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    for w in engine.buckets:
+        rows = engine._bucket_batch_size(w)
+        engine.step(torch.full((rows, w), 7, dtype=torch.int8, device="cuda"),
+                    torch.full((rows, w), 20, dtype=torch.uint8, device="cuda"))  # fmt: skip
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - held_before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = engine.warmup()
+    torch.cuda.synchronize()
+    peak, held = torch.cuda.max_memory_allocated() - held_before, torch.cuda.memory_allocated() - held_before
+    shapes = sum(len(engine._row_variants(w)) for w in engine.buckets)
+    if engine.stats.captures != shapes:
+        raise SmokeFailure(f"warmup captured {engine.stats.captures} graphs, the ladder has {shapes} shapes")
+    print(f"graph memory on {card}: warmup() captured {shapes} (rows, width) graphs in {seconds:.3f} s (compile_s "
+          f"{engine.stats.compile_s:.3f}); peak {peak / 1e9:.2f} GB, held after {held / 1e9:.2f} GB (the weights "
+          f"excluded); eager step of every full batch: peak {eager_peak / 1e9:.2f} GB")  # fmt: skip
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 NATIVE_CALLS = ("fq_index", "encode_spans_batch", "majority_vote_batch", "label_regions", "chop_records",
                 "bgzf_compress")  # fmt: skip
 
@@ -1877,22 +2016,58 @@ def one_read_flipped(predicts: dict, name: str) -> dict:
     return {**predicts, name: dataclasses.replace(p, prediction=flipped)}
 
 
+@contextlib.contextmanager
+def recorded_engines():
+    """Record every `PredictEngine` made meanwhile (the CLI makes its own)."""
+    from deepchopper_tpu_torch.infer import engine as engine_module
+
+    made, cls = [], engine_module.PredictEngine
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    engine_module.PredictEngine = Recorded
+    try:
+        yield made
+    finally:
+        engine_module.PredictEngine = cls
+
+
+def print_fused_pass(card: str, what: str, stats) -> None:
+    print(
+        f"fused throughput, {what}, on {card}: {stats.total_fq_count / stats.elapsed_s:.1f} reads/s, "
+        f"{stats.tokens / stats.elapsed_s:.0f} tokens/s (wall {stats.elapsed_s:.3f} s; stages: encode_s "
+        f"{stats.encode_s:.3f}, device_s {stats.device_s:.3f}, smooth_s {stats.smooth_s:.3f}, chop_write_s "
+        f"{stats.chop_write_s:.3f}, first_write_s {stats.first_write_s:.3f}; compile_s {stats.compile_s:.3f} (graph "
+        f"capture, inside device_s), {stats.dispatches} dispatches, padded tokens {stats.padded_tokens} = "
+        f"{stats.padded_tokens / stats.tokens:.3f} x the tokens)"
+    )
+
+
 def phase_fused(card: str, fq: Path, counts: Counts) -> int:
     """The north-star main path: `predict --fused-chop --random-init` through
     the CLI on the flagship over the reads of `fq`, writing into the current
-    directory (no output prefix). Checks that the native host plane ran, that
-    mixer_fwd launched once a layer per batch and the setup kernel once, and
-    that the chopped FASTQ is byte-identical, after decompression and under the
-    same name, to the two-phase path on the same weights: `predict
-    --shard-format npz` then `chop`, and the same through `--shard-format pt`.
-    Each rule's control (the shards' labels with one read's flipped, chopped
-    again) must fail it. Prints reads/s, tokens/s and the stage breakdown.
-    Returns the setup kernel's launches."""
+    directory (no output prefix); each (rows, width) is captured as a CUDA
+    graph at its first dispatch. Checks that the native host plane ran, that
+    mixer_fwd launched once a layer per dispatch (graph replays, and each
+    capture's eager run, its first dispatch's own), and the setup kernel
+    once, and that the chopped
+    FASTQ is byte-identical, after decompression and under the same name, to
+    the two-phase path on the same weights: `predict --shard-format npz` then
+    `chop`, and the same through `--shard-format pt`. Each rule's control
+    (the shards' labels with one read's flipped, chopped again) must fail it.
+    Then a second `fused_predict_chop` pass on the CLI's engine, whose shapes
+    are captured: its output must be byte-identical to the first pass's.
+    Prints each pass's reads/s, tokens/s, stage breakdown, capture seconds,
+    dispatches and padding. Returns the setup kernel's launches."""
     import numpy as np
     import torch
 
     from deepchopper_tpu_torch import cli, native
     from deepchopper_tpu_torch.chop import ChopOptions, stream_chop_with_predicts
+    from deepchopper_tpu_torch.infer.fused import fused_predict_chop
     from deepchopper_tpu_torch.io.predicts import load_predicts_from_batch_pts
     from deepchopper_tpu_torch.models.registry import build_model
 
@@ -1900,7 +2075,7 @@ def phase_fused(card: str, fq: Path, counts: Counts) -> int:
     parser = cli.build_parser()
     base = ["predict", str(fq), "--model", HYENA, "--random-init"]
     (work / "one").mkdir(parents=True)
-    with contextlib.chdir(work / "one"):
+    with contextlib.chdir(work / "one"), recorded_engines() as made:
         native.reset_calls()
         counts.reset()
         stats = cli.predict(parser.parse_args([*base, "--fused-chop"]))
@@ -1911,9 +2086,10 @@ def phase_fused(card: str, fq: Path, counts: Counts) -> int:
     n_layer = build_model(HYENA).backbone_config.n_layer
     if not all(ran.values()):
         raise SmokeFailure(f"fused: the native host plane did not run: calls {ran}")
-    want = {"mixer_fwd": n_layer * engine.batches, "mixer_bwd": 0, "setup": 1}
-    if launches != want or not engine.batches:
-        raise SmokeFailure(f"fused: launches {launches} != {want} ({engine.batches} batches)")
+    want = {"mixer_fwd": n_layer * (engine.dispatches + engine.warm_runs), "mixer_bwd": 0, "setup": 1}
+    if launches != want or not engine.batches or not engine.captures:
+        raise SmokeFailure(f"fused: launches {launches} != {want} ({engine.batches} batches, {engine.dispatches} "
+                           f"dispatches, {engine.captures} captures)")  # fmt: skip
     if (stats.total_fq_count, stats.predicts_loaded, engine.reads) != (N_READS,) * 3:
         raise SmokeFailure(f"fused: {stats.total_fq_count} reads, {stats.predicts_loaded} predicted, of {N_READS}")
     fused_out = _chopped(work / "one")
@@ -1923,13 +2099,29 @@ def phase_fused(card: str, fq: Path, counts: Counts) -> int:
         raise SmokeFailure(f"fused: {n_records} records written, {stats.total_output_count} counted, "
                            f"{stats.total_fq_count} reads (no read chopped)")  # fmt: skip
     print(f"fused predict+chop {HYENA}: {stats.total_fq_count} reads -> {stats.total_output_count} records "
-          f"({fused_out.name}), {engine.batches} batches; native calls {ran}; launches {launches}")  # fmt: skip
-    print(
-        f"fused throughput on {card}: {stats.total_fq_count / stats.elapsed_s:.1f} reads/s, "
-        f"{engine.tokens / stats.elapsed_s:.0f} tokens/s (wall {stats.elapsed_s:.3f} s, setup_s {engine.setup_s:.3f} s "
-        f"off the wall; stages: encode_s {stats.encode_s:.3f}, device_s {stats.device_s:.3f}, smooth_s "
-        f"{stats.smooth_s:.3f}, chop_write_s {stats.chop_write_s:.3f}, first_write_s {stats.first_write_s:.3f})"
-    )
+          f"({fused_out.name}), {engine.batches} batches, {engine.dispatches} dispatches, {engine.captures} CUDA "
+          f"graphs captured, each from its first dispatch's eager run; native calls {ran}; launches {launches} = "
+          f"mixer_fwd {n_layer} layers x ({engine.dispatches} dispatches + {engine.warm_runs} warm runs)")  # fmt: skip
+    print(f"  setup_s {engine.setup_s:.3f} s, off the wall")
+    print_fused_pass(card, "first pass (the CLI's, capturing lazily)", stats)
+
+    (work / "two").mkdir()
+    first_captures, first_warm = engine.captures, engine.warm_runs
+    with contextlib.chdir(work / "two"):
+        counts.reset()
+        again = fused_predict_chop(made[0], fq, ChopOptions())
+        torch.cuda.synchronize()
+        launches_again = counts.read()
+    print_fused_pass(card, "second pass on the same engine", again)
+    new_captures = engine.captures - first_captures  # `engine` is the engine's own stats: they grew
+    want = {"mixer_fwd": n_layer * (again.dispatches + engine.warm_runs - first_warm), "mixer_bwd": 0, "setup": 0}
+    if launches_again != want or again.dispatches != stats.dispatches:
+        raise SmokeFailure(f"fused second pass: launches {launches_again} != {want}, {again.dispatches} dispatches")
+    second_out = _chopped(work / "two")
+    if second_out.name != fused_out.name or _gunzip(second_out) != fused_bytes:
+        raise SmokeFailure(f"fused second pass: {second_out.name} is not byte-identical to the first pass's output")
+    print(f"  second pass: {new_captures} new captures, launches {launches_again}; output byte-identical to the "
+          f"first pass's ({len(fused_bytes)} bytes)")  # fmt: skip
 
     for fmt in ("npz", "pt"):
         cwd = work / fmt
@@ -1950,7 +2142,7 @@ def phase_fused(card: str, fq: Path, counts: Counts) -> int:
             if _gunzip(control.output_file) == fused_bytes:
                 raise SmokeFailure(f"{rule}: its control ({name}'s labels flipped) passes it")
         print(f"  {rule}: same name, {len(fused_bytes)} bytes equal; control ({name}'s labels flipped) differs")
-    return launches["setup"]
+    return launches["setup"]  # the CLI pass's: its engine launched the setup kernel once
 
 
 def main() -> int:
@@ -1998,6 +2190,9 @@ def main() -> int:
             timed(check_inproj_against_plain, fq, work / f"{HYENA}-inproj" / "out" / "0")
         timed(phase_predict, card, CADUCEUS, fq, Counts(scan), {"scan_fwd": 2})
         timed(check_caduceus_against_plain, fq, work / CADUCEUS / "out" / "0")
+        timed(check_graph_replay, fq, HYENA)
+        timed(check_graph_replay, fq, CADUCEUS)
+        timed(phase_graph_memory, card)
         timed(phase_train_parity)
         timed(phase_route_train_parity)
         launches = timed(phase_train, card, HYENA, Counts(mixer), {"mixer_fwd": (4, 4), "mixer_bwd": (4, 0)})

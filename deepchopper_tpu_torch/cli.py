@@ -159,14 +159,16 @@ def cmd_predict(args: argparse.Namespace) -> int:
         print(f"Error: {exc}", file=sys.stderr)
         return 2
     if args.fused_chop:
+        engine = stats.extras["engine"]
         print(
             f"chopped {stats.total_fq_count} reads -> {stats.total_output_count} records in {stats.elapsed_s:.3f}s "
-            f"(setup {stats.extras['engine'].setup_s:.3f}s) on {args.device} -> {stats.output_file}"
+            f"(setup {engine.setup_s:.3f}s, graph capture {engine.compile_s:.3f}s) on {args.device} "
+            f"-> {stats.output_file}"
         )
     else:
         print(
             f"predicted {stats.reads} reads ({stats.tokens} tokens, {stats.batches} batches) "
-            f"in {stats.elapsed_s:.3f}s on {args.device} -> {args.output}"
+            f"in {stats.elapsed_s:.3f}s (graph capture {stats.compile_s:.3f}s) on {args.device} -> {args.output}"
         )
     return 0
 

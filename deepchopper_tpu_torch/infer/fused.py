@@ -48,6 +48,17 @@ class FusedStats(ChopStats):
     smooth_s: float = 0.0  # worker: majority vote + region extraction (overlaps the device)
     chop_write_s: float = 0.0  # worker: record split + BGZF write (overlaps the device)
     first_write_s: float = 0.0  # wall from the start to the first chopped chunk written
+    # The engine over this pass: CUDA graph captures (inside device_s), its
+    # dispatches, and the tokens it read and computed (padding included).
+    compile_s: float = 0.0
+    dispatches: int = 0
+    tokens: int = 0
+    padded_tokens: int = 0
+
+
+def _engine_totals(s) -> tuple:
+    """The `PredictStats` totals a pass reports the growth of."""
+    return s.compile_s, s.dispatches, s.tokens, s.padded_tokens
 
 
 _CHOP_TYPE_CODE = {ChopType.ALL: 0, ChopType.TERMINAL: 1, ChopType.INTERNAL: 2}
@@ -132,6 +143,7 @@ def fused_predict_chop(
     opts = opts or ChopOptions()
     fq_path = Path(fq_path)
     stats = FusedStats()
+    engine_before = _engine_totals(engine.stats)
     start = time.monotonic()
 
     order: deque[FastqChunk] = deque()
@@ -229,6 +241,9 @@ def fused_predict_chop(
         raise
 
     stats.elapsed_s = time.monotonic() - start
+    stats.compile_s, stats.dispatches, stats.tokens, stats.padded_tokens = (
+        now - was for now, was in zip(_engine_totals(engine.stats), engine_before)
+    )
     # smooth/chop run on the worker and overlap the device: stage seconds are
     # per-stage busy time, not a partition of the wall time.
     stats.encode_s = max(stats.elapsed_s - stats.device_s, 0.0)

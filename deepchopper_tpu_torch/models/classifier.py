@@ -2,7 +2,10 @@
 
 Port of `deepchopper_tpu/models/classifier.py:HyenaTokenClassifier` and
 `CaduceusTokenClassifier`. Both take input_ids (B, L) int and input_quals
-(B, L) float32 and return logits (B, L, 2) float32.
+(B, L) float32 and return logits (B, L, 2) float32. For the inference
+engine's CUDA graphs, each also takes a `memo` of work that depends on the
+width alone, and names what its forward reads from outside its arguments
+and weights (`graph_key`).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from torch import nn
 from .caduceus import CaduceusBackbone
 from .config import CaduceusConfig, HeadConfig, HyenaConfig
 from .head import TokenClassificationHead
-from .hyena import HyenaBackbone
+from .hyena import HyenaBackbone, mixer_route
 
 
 class _TokenClassifier(nn.Module):
@@ -29,6 +32,12 @@ class _TokenClassifier(nn.Module):
         self.backbone.reset_parameters(gen)
         self.head.reset_parameters(gen)
 
+    def graph_key(self, width: int):
+        """What a forward at `width` reads besides its arguments and weights,
+        and could read otherwise later: a forward captured as a CUDA graph is
+        replayed only under the same key."""
+        return None
+
 
 class HyenaTokenClassifier(_TokenClassifier):
     """The Hyena backbone, whose (B, D, L) hidden state the head reads as it is."""
@@ -36,8 +45,14 @@ class HyenaTokenClassifier(_TokenClassifier):
     def __init__(self, backbone_config: HyenaConfig, head_config: HeadConfig, name: str = ""):
         super().__init__(HyenaBackbone(backbone_config), backbone_config, head_config, name)
 
-    def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor) -> torch.Tensor:
-        return self.head(self.backbone(input_ids), input_quals)
+    def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor, memo: dict | None = None) -> torch.Tensor:
+        """`memo`: keeps the long filters (and their spectra) of each width,
+        for inference on fixed weights (`HyenaOperator.forward`)."""
+        return self.head(self.backbone(input_ids, memo), input_quals)
+
+    def graph_key(self, width: int) -> str:
+        """The mixer route, which follows the environment (`mixer_route`)."""
+        return mixer_route(self.backbone_config.d_model, width)
 
 
 class CaduceusTokenClassifier(_TokenClassifier):
@@ -47,7 +62,8 @@ class CaduceusTokenClassifier(_TokenClassifier):
     def __init__(self, backbone_config: CaduceusConfig, head_config: HeadConfig, name: str = ""):
         super().__init__(CaduceusBackbone(backbone_config), backbone_config, head_config, name)
 
-    def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor, memo: dict | None = None) -> torch.Tensor:
+        """`memo`: unused (no work of this backbone depends on the width alone)."""
         return self.head(self.backbone(input_ids).transpose(1, 2), input_quals)
 
 

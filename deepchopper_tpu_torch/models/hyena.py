@@ -42,7 +42,7 @@ from torch import nn
 from ..ops.conv import fft_causal_conv
 from ..ops.gated import gated_fft_conv_bm, gated_reference
 from ..ops.inproj import mixer_fft_conv_inproj
-from ..ops.mixer import mixer_fft_conv_bm
+from ..ops.mixer import fixed_filter, mixer_fft_conv_bm
 from .config import HyenaConfig
 
 
@@ -234,9 +234,17 @@ class HyenaOperator(nn.Module):
         nn.init.zeros_(self.short_filter_bias)
         self.filter_fn.reset_parameters(gen)
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
+    def forward(self, u: torch.Tensor, memo: dict | None = None) -> torch.Tensor:
+        """`memo`, for inference: the long filter and its spectra depend on the
+        width alone, so they are computed once a width and kept in it."""
         dtype = getattr(torch, self.cfg.compute_dtype)
-        k_long, bias = self.filter_fn(u.shape[2])
+        if memo is None:
+            k_long, bias = self.filter_fn(u.shape[2])
+        else:
+            key = (self, u.shape[2])
+            if key not in memo:
+                memo[key] = fixed_filter(*self.filter_fn(u.shape[2]))
+            k_long, bias = memo[key]
         k_short, b_short = self.short_filter_kernel, self.short_filter_bias
         route = mixer_route(self.cfg.d_model, u.shape[2])
         if route == "inproj":
@@ -283,9 +291,9 @@ class HyenaBlock(nn.Module):
         self.mixer.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
 
-    def forward(self, r: torch.Tensor) -> torch.Tensor:
+    def forward(self, r: torch.Tensor, memo: dict | None = None) -> torch.Tensor:
         dtype = getattr(torch, self.cfg.compute_dtype)
-        r = r + self.mixer(self.norm1(r, dtype)).to(r.dtype)
+        r = r + self.mixer(self.norm1(r, dtype), memo).to(r.dtype)
         r = r + self.mlp(self.norm2(r, dtype)).to(r.dtype)
         return r
 
@@ -293,7 +301,8 @@ class HyenaBlock(nn.Module):
 class HyenaBackbone(nn.Module):
     """Embedding -> n_layer HyenaBlocks -> final LayerNorm.
 
-    forward(input_ids (B, L) int) -> hidden (B, D, L) in compute_dtype."""
+    forward(input_ids (B, L) int, memo) -> hidden (B, D, L) in compute_dtype;
+    `memo` as `HyenaOperator.forward`."""
 
     def __init__(self, cfg: HyenaConfig):
         super().__init__()
@@ -313,10 +322,10 @@ class HyenaBackbone(nn.Module):
         for blk in self.blocks():
             blk.reset_parameters(gen)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, memo: dict | None = None) -> torch.Tensor:
         dtype = getattr(torch, self.cfg.compute_dtype)
         emb = F.embedding(input_ids, self.word_embeddings.weight.to(dtype))  # (B, L, D)
         r = emb.transpose(1, 2).contiguous()  # (B, D, L)
         for blk in self.blocks():
-            r = blk(r)
+            r = blk(r, memo)
         return self.ln_f(r, dtype)

@@ -34,6 +34,18 @@ SOURCES = (
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
+# The launch counters of every op module (`counters`): one count per wrapper
+# call that reached the card. Read to show a path ran through the kernels; a
+# CUDA graph's replays add the launches its capture counted (`infer/engine.py`).
+COUNTERS: list[dict[str, int]] = []
+
+
+def counters(*names: str) -> dict[str, int]:
+    """A launch counter of `names` at 0, registered in COUNTERS."""
+    counts = dict.fromkeys(names, 0)
+    COUNTERS.append(counts)
+    return counts
+
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""

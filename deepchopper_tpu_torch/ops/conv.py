@@ -24,11 +24,12 @@ import functools
 
 import torch
 
+from . import _build
 from .mixer import MAX_SEQ_LEN, _twiddles, fft_size, filter_spectrum
 
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the path ran through it.
-launch_counts: dict[str, int] = {"conv_fwd": 0}
+launch_counts: dict[str, int] = _build.counters("conv_fwd")
 
 
 def reset_launch_counts() -> None:
@@ -66,8 +67,6 @@ def conv_bwd_reference(v, dy, k, bias):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("conv_fwd.cu")
     ptr = ctypes.c_void_p
     lib.conv_fwd.argtypes = [ptr] * 5 + [ctypes.c_int] * 4 + [ptr]
@@ -102,14 +101,12 @@ def conv_fwd_cuda(v: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch
     y = torch.empty_like(vc)
     lib = _lib()
     scratch = torch.empty(max(lib.conv_fwd_scratch_bytes(batch, d_model, log2n), 8), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv_fwd(
-            vc.data_ptr(), khat.data_ptr(), tw.data_ptr(), scratch.data_ptr(), y.data_ptr(),
-            batch, d_model, seq_len, log2n, stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"conv_fwd launch failed: cudaError {err} at (B={batch}, L={seq_len}, D={d_model})")
+    _build.launch(
+        lib.conv_fwd, vc,
+        vc.data_ptr(), khat.data_ptr(), tw.data_ptr(), scratch.data_ptr(), y.data_ptr(),
+        batch, d_model, seq_len, log2n,
+        what=f"conv_fwd at (B={batch}, L={seq_len}, D={d_model})",
+    )  # fmt: skip
     launch_counts["conv_fwd"] += 1
     return y
 

@@ -29,11 +29,12 @@ import functools
 
 import torch
 
+from . import _build
 from .mixer import _DTYPE_CODES, MAX_SEQ_LEN, _twiddles, fft_size, filter_spectrum
 
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the path ran through it.
-launch_counts: dict[str, int] = {"gated_fwd": 0}
+launch_counts: dict[str, int] = _build.counters("gated_fwd")
 
 
 def reset_launch_counts() -> None:
@@ -84,8 +85,6 @@ def gated_bwd_reference(uc_bm, dy_bm, k_long, bias):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("gated_fwd.cu")
     ptr = ctypes.c_void_p
     lib.gated_fwd.argtypes = [ptr] * 5 + [ctypes.c_int] * 5 + [ptr]
@@ -122,14 +121,12 @@ def gated_fwd_cuda(uc_bm: torch.Tensor, k_long: torch.Tensor, bias: torch.Tensor
     out = torch.empty((batch, d_model, seq_len), dtype=uc.dtype, device=dev)
     lib = _lib()
     scratch = torch.empty(max(lib.gated_fwd_scratch_bytes(batch, d_model, log2n), 8), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.gated_fwd(
-            uc.data_ptr(), khat.data_ptr(), tw.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            batch, d_model, seq_len, log2n, _DTYPE_CODES[uc.dtype], stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"gated_fwd launch failed: cudaError {err} at (B={batch}, D={d_model}, L={seq_len})")
+    _build.launch(
+        lib.gated_fwd, uc,
+        uc.data_ptr(), khat.data_ptr(), tw.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        batch, d_model, seq_len, log2n, _DTYPE_CODES[uc.dtype],
+        what=f"gated_fwd at (B={batch}, D={d_model}, L={seq_len})",
+    )  # fmt: skip
     launch_counts["gated_fwd"] += 1
     return out
 

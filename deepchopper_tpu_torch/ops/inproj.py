@@ -33,12 +33,12 @@ import functools
 
 import torch
 
-from . import mixer
+from . import _build, mixer
 from .mixer import _DTYPE_CODES, MAX_SEQ_LEN, _twiddles, fft_size, filter_spectrum
 
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the path ran through it.
-launch_counts: dict[str, int] = {"mixer_inproj_fwd": 0}
+launch_counts: dict[str, int] = _build.counters("mixer_inproj_fwd")
 
 
 def reset_launch_counts() -> None:
@@ -68,8 +68,6 @@ def inproj_reference(x_bm, w_in, b_in, k_short, b_short, k_long, bias) -> torch.
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load("mixer_inproj_fwd.cu")
     ptr = ctypes.c_void_p
     lib.mixer_inproj_fwd.argtypes = [ptr] * 9 + [ctypes.c_int] * 5 + [ptr]
@@ -116,17 +114,13 @@ def mixer_inproj_fwd_cuda(x_bm, w_in, b_in, k_short, b_short, k_long, bias) -> t
     scratch = torch.empty(
         max(lib.mixer_inproj_fwd_scratch_bytes(batch, d_model, log2n), 8), dtype=torch.uint8, device=dev
     )
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mixer_inproj_fwd(
-            x.data_ptr(), w.data_ptr(), bin32.data_ptr(), taps.data_ptr(), bsh.data_ptr(), khat.data_ptr(),
-            tw.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            batch, d_model, seq_len, log2n, _DTYPE_CODES[x.dtype], stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(
-            f"mixer_inproj_fwd launch failed: cudaError {err} at (B={batch}, D={d_model}, L={seq_len})"
-        )
+    _build.launch(
+        lib.mixer_inproj_fwd, x,
+        x.data_ptr(), w.data_ptr(), bin32.data_ptr(), taps.data_ptr(), bsh.data_ptr(), khat.data_ptr(),
+        tw.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        batch, d_model, seq_len, log2n, _DTYPE_CODES[x.dtype],
+        what=f"mixer_inproj_fwd at (B={batch}, D={d_model}, L={seq_len})",
+    )  # fmt: skip
     launch_counts["mixer_inproj_fwd"] += 1
     return out
 

@@ -34,7 +34,7 @@ from . import _build
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the main path ran
 # through the kernels.
-launch_counts: dict[str, int] = {"mixer_fwd": 0, "mixer_bwd": 0}
+launch_counts: dict[str, int] = _build.counters("mixer_fwd", "mixer_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -89,16 +89,39 @@ def fft_size(seq_len: int) -> int:
 def filter_spectrum(k_long: torch.Tensor, bias: torch.Tensor, n: int) -> torch.Tensor:
     """(D, n/2 + 1) complex64 spectrum of the zero-padded long filter with
     the skip bias as a delta tap (k[0] += bias) and 1/n folded in — the
-    role of `khat_scrambled` in the JAX package, in natural order."""
+    role of `khat_scrambled` in the JAX package, in natural order. A filter
+    made by `fixed_filter` keeps each of its spectra after the first call."""
+    spectra = getattr(k_long, "fixed_spectra", None)
+    if spectra is not None and spectra[0] is bias:
+        if n not in spectra[1]:
+            spectra[1][n] = _spectrum(k_long, bias, n)
+        return spectra[1][n]
+    return _spectrum(k_long, bias, n)
+
+
+def _spectrum(k_long: torch.Tensor, bias: torch.Tensor, n: int) -> torch.Tensor:
     kt = k_long.float().T.clone()  # (D, L)
     kt[:, 0] += bias.float()
     return (torch.fft.rfft(kt, n=n, dim=-1) / n).contiguous()
 
 
-@functools.lru_cache(maxsize=64)
+def fixed_filter(k_long: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mark a long filter (k_long, bias) as fixed for the life of k_long:
+    `filter_spectrum` then computes each of its spectra once and keeps it on
+    k_long (a CUDA graph captured on one reads it at every replay). For
+    inference, where the filter depends on the width alone."""
+    k_long.fixed_spectra = (bias, {})
+    return k_long, bias
+
+
+@functools.lru_cache(maxsize=None)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     """tw[j] = exp(-2 pi i j / n) for j in [0, n/2], complex64, computed in
-    float64 on the host."""
+    float64 on the host. Kept for the life of the process (one per power of
+    two and device): a CUDA graph captured on a table reads it at every
+    replay, so it must never be evicted. Its first use at a width must not
+    be inside a capture, where the host-to-device copy is not allowed
+    (`infer/engine.py` runs each shape once before capturing it)."""
     j = np.arange(n // 2 + 1, dtype=np.float64)
     tw = np.exp(-2j * np.pi * j / n).astype(np.complex64)
     return torch.from_numpy(tw).to(device)
@@ -265,15 +288,13 @@ def mixer_bwd_cuda(proj_bm, dy_bm, k_short, b_short, k_long, bias):
     dkhat = torch.empty((d_model, n // 2 + 1), dtype=torch.complex64, device=dev)
     lib = _bwd_lib()
     scratch = torch.empty(lib.mixer_bwd_scratch_bytes(batch, d_model, log2n), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mixer_bwd(
-            proj.data_ptr(), dy.data_ptr(), taps_f.data_ptr(), bsh.data_ptr(), khat.data_ptr(), tw.data_ptr(),
-            scratch.data_ptr(), dgates.data_ptr(), dkhat.data_ptr(),
-            batch, d_model, seq_len, log2n, _DTYPE_CODES[proj.dtype], stream,
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"mixer_bwd launch failed: cudaError {err} at (B={batch}, D={d_model}, L={seq_len})")
+    _build.launch(
+        lib.mixer_bwd, proj,
+        proj.data_ptr(), dy.data_ptr(), taps_f.data_ptr(), bsh.data_ptr(), khat.data_ptr(), tw.data_ptr(),
+        scratch.data_ptr(), dgates.data_ptr(), dkhat.data_ptr(),
+        batch, d_model, seq_len, log2n, _DTYPE_CODES[proj.dtype],
+        what=f"mixer_bwd at (B={batch}, D={d_model}, L={seq_len})",
+    )  # fmt: skip
     launch_counts["mixer_bwd"] += 1
     return _grads_from_cotangents(proj, dgates, dkhat, k_short, b_short, k_long, bias, n)
 

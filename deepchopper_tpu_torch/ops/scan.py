@@ -20,8 +20,14 @@ launches `scan_ckpt` then `scan_bwd` of `csrc/scan_bwd.cu` (the ports of
 `_scan_ckpt_kernel` and `_scan_bwd_kernel`): the first stores the state at
 the entry of every `CKPT_CHUNK`-step chunk, the second walks the chunks
 against the scan's direction, recomputes the states of a chunk from its
-checkpoint and runs the cotangent recurrence. On CPU tensors they run
-`selective_scan_reference` and `scan_bwd_reference`, the plain PyTorch
+checkpoint and runs the cotangent recurrence. The kernels take N in
+KERNEL_STATES and Din a multiple of 256 / N (`scan_kernel_shape`); a CUDA
+scan of any other shape is brought to one in the wrapper
+(`scan_kernel_groups`), as the TPU kernel pads L and the batch to take every
+shape: Din padded with idle channels (u = delta = 0), N padded to 8 or 16
+with idle states (Bp = Cp = 0, A = -1), and N above 16 split into groups of
+16 states, each a scan of its own whose y (and du, ddelta) add up. CPU tensors
+run `selective_scan_reference` and `scan_bwd_reference`, the plain PyTorch
 versions. Nothing falls back.
 """
 
@@ -39,7 +45,7 @@ from . import _build
 # Launches of each CUDA kernel since the last reset: one per wrapper call
 # that reached the card. Read by chip_smoke.py to show the main path ran
 # through the kernels.
-launch_counts: dict[str, int] = {"scan_fwd": 0, "scan_ckpt": 0, "scan_bwd": 0}
+launch_counts: dict[str, int] = _build.counters("scan_fwd", "scan_ckpt", "scan_bwd")
 
 # Steps per checkpoint chunk: fixed by the kernels (`kChunk` in
 # csrc/scan_common.cuh). Chunk c covers t in [c * CKPT_CHUNK, (c + 1) * CKPT_CHUNK).
@@ -140,7 +146,7 @@ def scan_fwd_plan(batch: int, seq_len: int, d_in: int, n: int) -> ScanFwdPlan:
     that bring the grid to FWD_SEG_WARPS warps, but into no more than
     isqrt(L): a block folds up to one end state per segment before its walk,
     so a segment is kept at least about as long as the count."""
-    if n not in KERNEL_STATES or d_in % (_THREADS // n) or batch < 1 or seq_len < 1:
+    if not scan_kernel_shape(n, d_in) or batch < 1 or seq_len < 1:
         raise ValueError(f"scan_fwd_plan: no plan for (B={batch}, L={seq_len}, Din={d_in}, N={n})")
     channels = next(c for c in (FWD_MAX_CHANNELS, 64, 32, 16) if d_in % c == 0)
     warps = _cdiv(channels, 32)
@@ -283,6 +289,56 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"selective_scan: {msg}")
 
 
+def scan_kernel_shape(n: int, d_in: int) -> bool:
+    """Whether the CUDA kernels take a scan of N states and Din channels as
+    it is: N in KERNEL_STATES and Din a multiple of the backward block's
+    256 / N channels (the shape half of `_check_kernel_args`)."""
+    return n in KERNEL_STATES and d_in % (_THREADS // n) == 0
+
+
+def scan_kernel_groups(n: int, d_in: int) -> tuple[int, int, int]:
+    """How the kernels take a scan of N states and Din channels: (states a
+    launch, launches, Din padded). A launch takes 8 states for N <= 8, else
+    16; N above 16 is split into groups of 16; Din is padded up to a multiple
+    of 256 / states. A shape the kernels take is (N, 1, Din)."""
+    states = KERNEL_STATES[0] if n <= KERNEL_STATES[0] else KERNEL_STATES[1]
+    per_block = _THREADS // states
+    return states, -(-n // states), -(-d_in // per_block) * per_block
+
+
+def _pad(t: torch.Tensor, dim: int, size: int, value: float = 0.0) -> torch.Tensor:
+    """t padded with `value` at the end of dimension `dim` (>= 0) to `size`;
+    t itself when it has that size."""
+    extra = size - t.shape[dim]
+    if extra == 0:
+        return t
+    return torch.nn.functional.pad(t, [0, 0] * (t.dim() - 1 - dim) + [0, extra], value=value)
+
+
+def _kernel_shaped(u, delta, A, Bp, Cp, D, dy=None):
+    """The scan's tensors brought to launches the kernels take
+    (`scan_kernel_groups`): (u, delta, dy, [(A, Bp, Cp, D) of each state
+    group]). Idle channels have u = delta = dy = 0 and D = 0, so their state
+    stays 0; idle states have Bp = Cp = 0 and A = -1, so theirs stays 0 too
+    and adds nothing to any output or gradient. D rides on the first group
+    only (the rest get zeros): y = sum over groups. A shape the kernels take
+    passes through as it is."""
+    n, d_in = A.shape[1], u.shape[2]
+    states, groups, d_pad = scan_kernel_groups(n, d_in)
+    n_pad = states * groups
+    u, delta = _pad(u, 2, d_pad), _pad(delta, 2, d_pad)
+    dy = None if dy is None else _pad(dy, 2, d_pad)
+    A = _pad(_pad(A, 0, d_pad, -1.0), 1, n_pad, -1.0)
+    Bp, Cp, D = _pad(Bp, 2, n_pad), _pad(Cp, 2, n_pad), _pad(D, 0, d_pad)
+    parts = [(A[:, s : s + states], Bp[..., s : s + states], Cp[..., s : s + states],
+              D if s == 0 else torch.zeros_like(D)) for s in range(0, n_pad, states)]  # fmt: skip
+    return u, delta, dy, parts
+
+
+def _join(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 def _check_kernel_args(u, delta, A, Bp, Cp=None, D=None, dy=None) -> None:
     """Raise on what the CUDA kernels do not take: CUDA float32 tensors on
     one device; u, delta (and dy) contiguous (B, L, Din); Bp, Cp (B, L, N)
@@ -295,8 +351,8 @@ def _check_kernel_args(u, delta, A, Bp, Cp=None, D=None, dy=None) -> None:
     _check(batch > 0 and seq_len > 0, f"empty input {tuple(u.shape)}")
     _check(A.dim() == 2 and A.shape[0] == d_in, f"A must be (Din={d_in}, N), got {tuple(A.shape)}")
     n = A.shape[1]
-    _check(n in KERNEL_STATES, f"the kernels take d_state in {KERNEL_STATES}, got {n}")
-    _check(d_in % (_THREADS // n) == 0, f"Din {d_in} is not a multiple of {_THREADS // n} (256 / N)")
+    _check(scan_kernel_shape(n, d_in), f"the kernels take d_state in {KERNEL_STATES} and Din a multiple of 256 / N, "
+                                       f"got N = {n}, Din = {d_in}")  # fmt: skip
     named = [("u", u, (batch, seq_len, d_in)), ("delta", delta, (batch, seq_len, d_in)), ("A", A, (d_in, n)),
              ("Bp", Bp, (batch, seq_len, n))]  # fmt: skip
     if Cp is not None:
@@ -393,6 +449,43 @@ def scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse: bool = False):
     return du, ddelta, d_a, dbp, dcp, d_d
 
 
+def scan_fwd_kernels(u, delta, A, Bp, Cp, D, reverse: bool = False) -> torch.Tensor:
+    """y of a CUDA scan of any N and Din on `scan_fwd_cuda`: one launch per
+    state group of `_kernel_shaped`, y summed over them, idle channels
+    dropped."""
+    d_in = u.shape[2]
+    u_k, delta_k, _dy, parts = _kernel_shaped(u, delta, A, Bp, Cp, D)
+    y = None
+    for a, bp, cp, dsk in parts:
+        part = scan_fwd_cuda(u_k, delta_k, a, bp, cp, dsk, reverse)
+        y = part if y is None else y.add_(part)
+    return y if u_k is u else y[..., :d_in].contiguous()
+
+
+def scan_bwd_kernels(u, delta, A, Bp, Cp, D, dy, reverse: bool = False):
+    """(du, ddelta, dA, dBp, dCp, dD) of a CUDA scan of any N and Din on
+    `scan_ckpt_cuda` and `scan_bwd_cuda`: per state group of
+    `_kernel_shaped`, du and ddelta summed, dA, dBp and dCp joined along N,
+    dD from the group that holds D; idle channels and states dropped."""
+    n, d_in = A.shape[1], u.shape[2]
+    u_k, delta_k, dy_k, parts = _kernel_shaped(u, delta, A, Bp, Cp, D, dy.contiguous())
+    du = ddelta = d_d = None
+    d_a, dbp, dcp = [], [], []
+    for a, bp, cp, dsk in parts:
+        ckpt = scan_ckpt_cuda(u_k, delta_k, a, bp, reverse)
+        g_du, g_ddelta, g_da, g_dbp, g_dcp, g_dd = scan_bwd_cuda(u_k, delta_k, a, bp, cp, dsk, dy_k, ckpt, reverse)
+        if du is None:
+            du, ddelta, d_d = g_du, g_ddelta, g_dd
+        else:
+            du.add_(g_du)
+            ddelta.add_(g_ddelta)
+        d_a.append(g_da)
+        dbp.append(g_dbp)
+        dcp.append(g_dcp)
+    return (du[..., :d_in], ddelta[..., :d_in], _join(d_a, 1)[:d_in, :n], _join(dbp, 2)[..., :n],
+            _join(dcp, 2)[..., :n], d_d[:d_in])  # fmt: skip
+
+
 class ScanFn(torch.autograd.Function):
     """The selective scan with its hand-written backward. Saves only its
     inputs: the backward recomputes the states from chunk checkpoints, as
@@ -403,7 +496,7 @@ class ScanFn(torch.autograd.Function):
         ctx.save_for_backward(u, delta, A, Bp, Cp, D)
         ctx.reverse = reverse
         if u.device.type == "cuda":
-            return scan_fwd_cuda(u, delta, A, Bp, Cp, D, reverse)
+            return scan_fwd_kernels(u, delta, A, Bp, Cp, D, reverse)
         return selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)
 
     @staticmethod
@@ -411,8 +504,7 @@ class ScanFn(torch.autograd.Function):
     def backward(ctx, dy):
         u, delta, A, Bp, Cp, D = ctx.saved_tensors
         if u.device.type == "cuda":
-            ckpt = scan_ckpt_cuda(u, delta, A, Bp, ctx.reverse)
-            grads = scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy.contiguous(), ckpt, ctx.reverse)
+            grads = scan_bwd_kernels(u, delta, A, Bp, Cp, D, dy, ctx.reverse)
         else:
             grads = scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, ctx.reverse)
         return (*grads, None)
@@ -421,8 +513,8 @@ class ScanFn(torch.autograd.Function):
 def selective_scan(u, delta, A, Bp, Cp, D, reverse: bool = False) -> torch.Tensor:
     """The selective scan: y (B, L, Din) float32, differentiable.
 
-    CPU tensors take the plain versions; CUDA tensors launch the kernels;
-    any other device raises."""
+    CPU tensors take the plain versions; CUDA tensors of any N and Din launch
+    the kernels (`scan_kernel_groups`); any other device raises."""
     if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"selective_scan: no implementation for device {u.device}")
     return ScanFn.apply(u, delta, A, Bp, Cp, D, reverse)

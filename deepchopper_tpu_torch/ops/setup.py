@@ -22,7 +22,7 @@ SHAPE = (8, 128)
 
 # Launches of the CUDA kernel since the last reset: one per wrapper call that
 # reached the card. Read by chip_smoke.py to show the path ran through it.
-launch_counts: dict[str, int] = {"setup": 0}
+launch_counts: dict[str, int] = _build.counters("setup")
 
 
 def reset_launch_counts() -> None:

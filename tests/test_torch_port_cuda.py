@@ -402,3 +402,148 @@ def test_runtime_setup_launches_the_setup_kernel_once_per_engine(cuda):
     assert setup.launch_counts["setup"] == 1
     assert set(_build.SOURCES) <= set(_build._loaded)
     assert engine.runtime_setup() == 0.0 and setup.launch_counts["setup"] == 1
+
+
+# -- the engine's CUDA graphs and the scan shapes the kernels do not take ------------
+
+
+def _engine(name: str, dtype: str, device, return_labels: bool = False):
+    """A PredictEngine on a registry model (random init, seed 0) at compute
+    dtype `dtype`."""
+    import dataclasses
+
+    from deepchopper_tpu_torch.infer.engine import PredictEngine
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    base = DeepChopper.new(name, seed=0, device=device)
+    model = type(base)(
+        dataclasses.replace(base.backbone_config, compute_dtype=dtype),
+        dataclasses.replace(base.head_config, compute_dtype=dtype),
+    ).to(device)
+    model.load_state_dict(base.state_dict())
+    return PredictEngine(model, max_length=1024, return_labels=return_labels, device=device)
+
+
+def _reads(rows: int, width: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(7, 12, (rows, width)).astype(np.int8)
+    quals = rng.integers(0, 41, (rows, width)).astype(np.uint8)
+    ids[-1, width // 3 :], quals[-1, width // 3 :] = 4, 0  # a padded read, as in a bucket
+    return ids, quals
+
+
+@pytest.mark.parametrize("name", ["hyenadna-tiny-1k-seqlen", "caduceus-tiny"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graph_replay_equals_step(cuda, name, dtype):
+    """A replay runs the captured kernels on the copied-in batch: bitwise the
+    eager step's logits, at two shapes. Control: a replay without the
+    copy-in of a new batch must fail that rule."""
+    engine = _engine(name, dtype, cuda)
+    for shape in ((8, 256), (2, 1024)):
+        ids, quals = _reads(*shape, seed=shape[1])
+        graph = engine._get_step(shape)
+        got = graph(ids, quals).clone()
+        want = engine.step(torch.from_numpy(ids).to(cuda), torch.from_numpy(quals).to(cuda))
+        assert got.dtype == torch.float32 and got.shape == (*shape, 2)
+        assert torch.equal(got, want), (shape, (got - want).abs().max().item())
+        ids2, quals2 = _reads(*shape, seed=shape[1] + 1)
+        graph.replay()  # the static inputs still hold the first batch
+        fresh = engine.step(torch.from_numpy(ids2).to(cuda), torch.from_numpy(quals2).to(cuda))
+        assert not torch.equal(graph.out, fresh)
+    assert engine.stats.captures == 2
+
+
+def test_graph_key_holds_the_hyena_route(cuda, monkeypatch):
+    """A graph captured on the unfused route (DEEPCHOPPER_FUSE_SHORT=0) is
+    not replayed once the variable is cleared: the fused route captures its
+    own, and each replays its own kernels."""
+    from deepchopper_tpu_torch.ops import gated
+
+    engine = _engine("hyenadna-tiny-1k-seqlen", "bfloat16", cuda)
+    n_layer = engine.model.backbone_config.n_layer
+    ids, quals = _reads(2, 1024, seed=5)
+    runs = {}
+    for env, kernel in (({"DEEPCHOPPER_FUSE_SHORT": "0"}, "gated_fwd"), ({}, "mixer_fwd")):
+        monkeypatch.delenv("DEEPCHOPPER_FUSE_SHORT", raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        graph = engine._get_step((2, 1024))
+        mixer.reset_launch_counts()
+        gated.reset_launch_counts()
+        graph(ids, quals)
+        torch.cuda.synchronize()
+        assert {**mixer.launch_counts, **gated.launch_counts} == {
+            "mixer_fwd": n_layer * (kernel == "mixer_fwd"), "mixer_bwd": 0, "gated_fwd": n_layer * (kernel == "gated_fwd")}
+        runs[kernel] = graph
+    assert runs["gated_fwd"] is not runs["mixer_fwd"] and engine.stats.captures == 2
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that cannot be captured (it copies to the host) raises at
+    capture and caches nothing, first on a fresh engine, then beside a graph
+    captured before; the engine then captures again, and the earlier graph
+    still replays right."""
+    engine = _engine("hyenadna-tiny-1k-seqlen", "bfloat16", cuda)
+    step = engine.step
+
+    def eager(shape, seed):
+        ids, quals = _reads(*shape, seed=seed)
+        return ids, quals, step(torch.from_numpy(ids).to(cuda), torch.from_numpy(quals).to(cuda))
+
+    for failing, good in (((2, 256), (2, 256)), ((4, 256), (8, 256))):
+        monkeypatch.setattr(engine, "step", lambda ids, quals: ids.float().sum().cpu())
+        with pytest.raises(RuntimeError):
+            engine._get_step(failing)
+        assert failing not in {k[:2] for k in engine._graphs}
+        monkeypatch.undo()
+        ids, quals, want = eager(good, seed=good[0])
+        assert torch.equal(engine._get_step(good)(ids, quals), want)
+    ids, quals, want = eager((2, 256), seed=9)
+    assert torch.equal(engine._get_step((2, 256))(ids, quals), want) and engine.stats.captures == 2
+
+
+def test_planned_predict_counts_launches_over_replays(cuda):
+    """Through `predict_batches`, the mixer's launches are n_layer per
+    dispatch: replays count, and a capture's eager run is its first
+    dispatch's own."""
+    from deepchopper_tpu_torch.data.bucketing import Batch
+
+    engine = _engine("hyenadna-tiny-1k-seqlen", "bfloat16", cuda, return_labels=True)
+    n_layer = engine.model.backbone_config.n_layer
+    batches = []
+    for i, rows in enumerate((512, 200, 512, 5)):  # full at W 256, a tail of 128 + 32 + 32 + 8 (padded to 32), ...
+        ids, quals = _reads(rows, 256, seed=40 + i)
+        batches.append(Batch(input_ids=ids.astype(np.int32), labels=ids, quals=quals.astype(np.float32),
+                             ids=np.zeros((rows, 256), np.int32), lengths=np.full(rows, 256, np.int32),
+                             read_ids=[str(r) for r in range(rows)], quals_raw=quals))  # fmt: skip
+    mixer.reset_launch_counts()
+    outs = [labels for _batch, labels in engine.predict_batches(iter(batches))]
+    torch.cuda.synchronize()
+    stats = engine.stats
+    assert [o.shape for o in outs] == [(512, 256), (200, 256), (512, 256), (5, 256)]
+    assert engine._plan_dispatches(200, 256) == [(0, 128, 128), (128, 32, 32), (160, 32, 32), (192, 8, 32)]
+    assert stats.dispatches == 1 + 4 + 1 + 1 and stats.captures == 3  # (512, 256), (128, 256), (32, 256)
+    assert stats.warm_runs == 0 and mixer.launch_counts["mixer_fwd"] == n_layer * stats.dispatches
+
+
+@pytest.mark.parametrize("d_in,n", [(128, 32), (72, 16), (40, 4)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_computes_shapes_the_kernels_do_not_take(cuda, d_in, n, reverse):
+    """N = 32, Din = 72 and N = 4 run on the kernels, brought to shapes they
+    take by the wrapper (`scan_kernel_groups`: one launch of each kernel per
+    state group): y within 1e-5 of max|ref| of the plain version on the CPU,
+    the gradients within SCAN_GRADS's limits (dA and dD sum B·L terms)."""
+    from deepchopper_tpu_torch.ops import scan
+
+    args = _scan_inputs(2, 300, d_in, n, "cpu", seed=d_in + n)
+    scan.reset_launch_counts()
+    leaves = [t.to(cuda).requires_grad_(True) for t in args[:6]]
+    y = scan.selective_scan(*leaves, reverse=reverse)
+    y.backward(args[6].to(cuda))
+    torch.cuda.synchronize()
+    groups = scan.scan_kernel_groups(n, d_in)[1]
+    assert scan.launch_counts == {"scan_fwd": groups, "scan_ckpt": groups, "scan_bwd": groups}
+    assert _rel(y.detach().cpu(), scan.selective_scan_reference(*args[:6], reverse)) <= 1e-5
+    want = scan.scan_bwd_reference(*args, reverse)
+    for (name, tol), leaf, w in zip(SCAN_GRADS, leaves, want):
+        assert _rel(leaf.grad.cpu(), w) <= tol, name
