@@ -2,7 +2,7 @@
 """Reads/s of the PyTorch port's `predict --fused-chop` on the flagship, for
 several checkouts of the repository in turns, on one GPU.
 
-    python3 scripts/torch_fused_ab.py [--reps 5] [--reads 300] CHECKOUT[@padded] [CHECKOUT[@padded] ...]
+    python3 scripts/torch_fused_ab.py [--reps 5] [--reads 300] CHECKOUT[@MODE] [CHECKOUT[@MODE] ...]
 
 The reads are chip_smoke.py's (`--reads` of the benchmark's length mix, 300
 by default, with reads in the 24576 and 32768 buckets), written once. Each
@@ -12,19 +12,20 @@ hyenadna-small-32k-seqlen twice in its own directory, each call with an
 engine of its own, then `fused_predict_chop` once more on the second call's
 engine, and reports the three passes' `FusedStats` (reads/s over
 `elapsed_s`, the stream alone: `runtime_setup`, which builds the kernels,
-is off it). The first pass is the fresh process's (every first use on the
-stream: library handles, cuFFT plans, and, where the checkout has them, the
-capture of each shape's CUDA graph); the second, a fresh engine in a warm
-process (graphs captured again, the rest warm); the third, the steady state
-(an engine that has run these reads before). A checkout named with
-`@padded` runs each batch as one dispatch padded up to the smallest row
-variant that holds it, in place of the engine's plan (the JAX engine's
-greedy split), to measure that plan against the split; the engine keeps the
-split. The checkouts take turns,
-the order reversed every round (A B, B A, A B, ...), so drift on the card
-falls on both alike. Prints each run as it ends, then the median, the lowest
-and the highest reads/s of each checkout and pass, and the card's name and
-power limit. Exits non-zero without a GPU.
+is off it) and each pass's peak device memory. The first pass is the fresh
+process's (every first use on the stream: library handles, cuFFT plans,
+and, where the checkout has them, the capture of each shape's CUDA graph);
+the second, a fresh engine in a warm process (graphs captured again, the
+rest warm); the third, the steady state (an engine that has run these reads
+before). A checkout named with `@padded` runs each batch as one dispatch
+padded up to the smallest row variant that holds it, in place of the
+engine's plan (the JAX engine's greedy split), to measure that plan against
+the split; the engine keeps the split. `@eager` runs every dispatch as the
+eager `step` (no CUDA graphs), to measure the graphs within one checkout.
+The checkouts take turns, the order reversed every round (A B, B A, A B,
+...), so drift on the card falls on both alike. Prints each run as it ends,
+then the median, the lowest and the highest reads/s of each checkout and
+pass, and the card's name and power limit. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -64,29 +65,38 @@ if sys.argv[2] == "padded":
         return [(0, b, target)]
 
     Recorded._plan_dispatches = one_dispatch
+elif sys.argv[2] == "eager":
+    Recorded._run = lambda self, shape, ids, quals: self._eager(ids, quals)
 args = ["predict", sys.argv[1], "--model", "hyenadna-small-32k-seqlen", "--random-init", "--fused-chop"]
 parser = cli.build_parser()
 passes = []
+# The engine's totals grow over a pass; a checkout without graphs has no
+# compile_s or captures (None).
+names = ("compile_s", "captures", "dispatches")
+
+
+def engine_totals():
+    engine = made[-1].stats
+    return (engine.tokens, engine.padded_tokens, *(getattr(engine, name, None) for name in names))
+
+
 for k in range(3):
+    was = engine_totals() if k == 2 else (0,) * (2 + len(names))
+    torch.cuda.reset_peak_memory_stats()
     if k < 2:
         stats = cli.predict(parser.parse_args(args))
     else:
         stats = fused_predict_chop(made[-1], sys.argv[1], ChopOptions(output_prefix="again"))
     torch.cuda.synchronize()
     engine = made[-1].stats
-    # The engine's totals grow over a pass; a checkout without graphs has no
-    # compile_s or captures (None).
-    totals = (engine.tokens, engine.padded_tokens, getattr(engine, "compile_s", None), getattr(engine, "captures", None),
-              getattr(engine, "dispatches", None))
-    was = passes[-1]["totals"] if k == 2 else (0, 0, 0.0, 0, 0)
-    grown = [None if now is None else now - before for now, before in zip(totals, was)]
+    grown = [None if now is None else now - before for now, before in zip(engine_totals(), was)]
     passes.append({"reads": stats.total_fq_count, "records": stats.total_output_count, "elapsed_s": stats.elapsed_s,
                    "reads_per_s": stats.total_fq_count / stats.elapsed_s, "tokens_per_s": grown[0] / stats.elapsed_s,
-                   "device_s": stats.device_s, "encode_s": stats.encode_s, "compile_s": grown[2],
-                   "captures": grown[3], "dispatches": grown[4], "padded_per_token": grown[1] / grown[0],
+                   "device_s": stats.device_s, "encode_s": stats.encode_s, **dict(zip(names, grown[2:])),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "padded_per_token": grown[1] / grown[0],
                    # (rows, width) shapes the engine has dispatched, and of those the ones dispatched once
                    "shapes": len(getattr(engine, "shape_counts", {})) or None,
-                   "shapes_once": sum(n == 1 for n in getattr(engine, "shape_counts", {}).values()), "totals": totals})
+                   "shapes_once": sum(n == 1 for n in getattr(engine, "shape_counts", {}).values())})
 print(json.dumps(passes))
 """
 
@@ -101,12 +111,12 @@ def run_one(checkout: str, fq: Path, cwd: Path) -> list[dict]:
                          timeout=900)  # fmt: skip
     if res.returncode != 0:
         raise SystemExit(f"fused run in {checkout} failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    return [{k: v for k, v in got.items() if k != "totals"} for got in json.loads(res.stdout.strip().splitlines()[-1])]
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("checkouts", nargs="+", help="A checkout's root, with @padded for one dispatch a batch")
+    parser.add_argument("checkouts", nargs="+", help="A checkout's root, with @padded or @eager")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--reads", type=int, default=300, help="Reads of the benchmark's length mix")
     opts = parser.parse_args()
