@@ -1,8 +1,9 @@
-// Causal FFT long conv of one row, shared by gated_fwd.cu, conv_fwd.cu and
-// mixer_inproj_fwd.cu: the two branches of mixer_fwd.cu (shared memory for
-// N <= 32768, two halves through a global scratch row for N = 65536) with the
-// fill and the output written by the caller, so each kernel supplies only how
-// it forms w and what it does with z.
+// Causal FFT long conv of one row, shared by gated_fwd.cu and conv_fwd.cu: the
+// two radix-2 branches of the first mixer_fwd.cu (shared memory for N <=
+// 32768, two halves through a global scratch row for N = 65536) with the fill
+// and the output written by the caller, so each kernel supplies only how it
+// forms w and what it does with z. mixer_fwd.cu and mixer_inproj_fwd.cu run on
+// fft_radix.cuh instead.
 //
 // Conventions as in mixer_common.cuh: N = 2M = 4H, the power of two >= 2L; z[m] =
 // w[2m] + i w[2m+1] is zero for m >= ceil(L/2) <= H; khat (M + 1) complex per

@@ -72,7 +72,7 @@ def _lib() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     lib.mixer_inproj_fwd.argtypes = [ptr] * 9 + [ctypes.c_int] * 5 + [ptr]
     lib.mixer_inproj_fwd.restype = ctypes.c_int
-    lib.mixer_inproj_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.mixer_inproj_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.mixer_inproj_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -112,7 +112,7 @@ def mixer_inproj_fwd_cuda(x_bm, w_in, b_in, k_short, b_short, k_long, bias) -> t
     out = torch.empty((batch, d_model, seq_len), dtype=x.dtype, device=dev)
     lib = _lib()
     scratch = torch.empty(
-        max(lib.mixer_inproj_fwd_scratch_bytes(batch, d_model, log2n), 8), dtype=torch.uint8, device=dev
+        max(lib.mixer_inproj_fwd_scratch_bytes(batch, d_model, seq_len, log2n), 8), dtype=torch.uint8, device=dev
     )
     _build.launch(
         lib.mixer_inproj_fwd, x,

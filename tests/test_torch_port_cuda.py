@@ -271,8 +271,11 @@ def _within(got, want, tol):
     assert err <= tol * want.float().abs().max().item(), err
 
 
-# 256..16384 run the shared-memory branch, 24576 and 32768 the global-scratch
-# branch; 300 and 1000 are off-ladder widths (odd half-lengths).
+# gated_fwd and conv_fwd: 256..16384 run the shared-memory branch, 24576 and
+# 32768 the global-scratch branch; mixer_inproj_fwd: 256..16384 one block a
+# channel group, 24576 and 32768 a cluster of two CTAs. 300 and 1000 are
+# off-ladder widths (odd half-lengths; 300 in bfloat16 takes the scalar tile
+# loads).
 ROUTE_WIDTHS = [256, 300, 1000, 1280, 16384, 24576, 32768]
 
 
@@ -313,6 +316,36 @@ def test_inproj_kernel_matches_plain(cuda, seq_len, dtype, tol):
     torch.cuda.synchronize()
     assert inproj.launch_counts["mixer_inproj_fwd"] == 1
     _within(got, inproj.inproj_reference(*args), tol)
+
+
+# D = 8, 12 and 24: K padded to 16 and a group part empty (12 in bfloat16:
+# weight rows off 16-byte alignment, staged one element at a time); 256 the
+# flagship's. L = 1000: a ragged last tile; 32768: the two-CTA cluster.
+@pytest.mark.parametrize("d_model", [8, 12, 24, 256])
+@pytest.mark.parametrize("seq_len", [1000, 32768])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_inproj_kernel_matches_plain_across_groups(cuda, d_model, seq_len, dtype, tol):
+    from deepchopper_tpu_torch.ops import inproj
+
+    args = _inproj_inputs(2, d_model, seq_len, dtype, cuda, seed=d_model + seq_len)
+    inproj.reset_launch_counts()
+    got = inproj.mixer_inproj_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert inproj.launch_counts["mixer_inproj_fwd"] == 1
+    _within(got, inproj.inproj_reference(*args), tol)
+
+
+@pytest.mark.parametrize("seq_len", [1000, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inproj_rows_are_independent_of_their_batch_and_repeatable(cuda, seq_len, dtype):
+    """Row 0 of a B = 4 call is bitwise the row run alone (B = 1), and two
+    calls are bitwise equal: no atomics, no dependence on the grid."""
+    from deepchopper_tpu_torch.ops import inproj
+
+    x, *params = _inproj_inputs(4, 24, seq_len, dtype, cuda, seed=seq_len + 7)
+    whole = inproj.mixer_inproj_fwd_cuda(x, *params)
+    assert torch.equal(whole, inproj.mixer_inproj_fwd_cuda(x, *params))
+    assert torch.equal(whole[:1], inproj.mixer_inproj_fwd_cuda(x[:1].contiguous(), *params))
 
 
 def _grads(fn, args, dy):
