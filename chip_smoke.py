@@ -29,10 +29,10 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      L = 1000 and at the config's max_seq_len L = 131072 (B = 1): scan_fwd's
      y and scan_ckpt's states within 1e-5 of max|ref|, scan_bwd's du,
      ddelta, dBp, dCp within 1e-5 and dA, dD (sums over B * L terms) within
-     1e-4 of each one's max|ref|, scan_fwd and scan_bwd bitwise repeatable;
-     timed on the ladder beside their bounds (bytes, f32 flops, and exps at
-     16 a clock per SM), each width's line with scan_fwd's plan (channels a
-     block, segments).
+     1e-4 of each one's max|ref|, all three bitwise repeatable; timed on
+     the ladder beside their bounds (bytes, f32 flops, and exps at 16 a
+     clock per SM), each width's line with scan_fwd's and scan_ckpt's plans
+     (channels a block, segments).
    - the gated conv (gated_fwd, the unfused Hyena route) and the
      in_proj-fused mixer (mixer_inproj_fwd) at D = 256, B = 2, f32 (1e-4 of
      max|ref|) and bf16 (1e-2); the causal conv (conv_fwd) in f32 only. Then
@@ -521,7 +521,7 @@ SCAN_GRADS = (("du", 1e-5), ("ddelta", 1e-5), ("dA", 1e-4), ("dBp", 1e-5), ("dCp
 
 def compare_scan(args, reverse: bool, where: str) -> dict[str, tuple[float, float]]:
     """The three scan kernels against their plain versions on the same
-    inputs: {kernel: (max-abs error, worst error of max|ref|)}; scan_bwd's
+    inputs: {kernel: (max-abs error, worst error of max|ref|)}; each one's
     second call must be bitwise equal to its first."""
     import torch
 
@@ -535,6 +535,8 @@ def compare_scan(args, reverse: bool, where: str) -> dict[str, tuple[float, floa
     torch.cuda.synchronize()
     out["scan_fwd"] = within(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse), 1e-5, f"{where} y")
     ckpt = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+    if not torch.equal(ckpt, scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)):
+        raise SmokeFailure(f"{where} ckpt: two calls on the same inputs differ")
     torch.cuda.synchronize()
     out["scan_ckpt"] = within(ckpt, scan.scan_ckpt_reference(u, delta, A, Bp, reverse), 1e-5, f"{where} ckpt")
     got = scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, ckpt, reverse)
@@ -589,9 +591,11 @@ def phase_scan_kernels() -> list[dict]:
         args = scan_inputs(batch, seq_len, seed=seq_len)
         u, delta, A, Bp, Cp, D, dy = args
         plan = scan.scan_fwd_plan(batch, seq_len, SCAN_D_IN, SCAN_N)
+        ckpt_plan = scan.scan_ckpt_plan(batch, seq_len, SCAN_D_IN, SCAN_N)
         for reverse in (False, True):
             where = (f"W={seq_len:6d} B={batch:3d} {'rev' if reverse else 'fwd'} (scan_fwd plan: {plan.channels} "
-                     f"channels a block, {plan.segments} segments of {plan.seg_len})")  # fmt: skip
+                     f"channels a block, {plan.segments} segments of {plan.seg_len}; scan_ckpt plan: "
+                     f"{ckpt_plan.segments} segments of {ckpt_plan.seg_len})")  # fmt: skip
             errs = compare_scan(args, reverse, where)
             for k in names:
                 rows[k]["err"] = max(rows[k]["err"], errs[k][0])
@@ -628,7 +632,7 @@ def phase_scan_kernels() -> list[dict]:
     for k, row in rows.items():
         print(f"  {k} ladder total (forward direction): kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound_ms']:.3f} ms")  # fmt: skip
-        source = "scan_fwd.cu" if k == "scan_fwd" else "scan_bwd.cu"
+        source = "scan_bwd.cu" if k == "scan_bwd" else "scan_fwd.cu"
         line = {"scan_fwd": 46, "scan_ckpt": 179, "scan_bwd": 200}[k]
         out.append({
             "name": k, "route": "cuda", "source": f"deepchopper_tpu_torch/csrc/{source}",

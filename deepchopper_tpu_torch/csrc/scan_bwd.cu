@@ -1,15 +1,16 @@
-// Selective scan of the Mamba mixer (Caduceus), backward: the checkpoint pass
-// and the cotangent walk.
+// Selective scan of the Mamba mixer (Caduceus), backward: the cotangent walk.
 //
-// Replaces the Pallas TPU kernels `_scan_ckpt_kernel` and `_scan_bwd_kernel`
-// (deepchopper_tpu/ops/pallas_scan.py), driven there by `selective_scan_pallas_bwd`.
-// Two C entry points, the forward's contract (scan_fwd.cu) plus:
+// Replaces the Pallas TPU kernel `_scan_bwd_kernel`
+// (deepchopper_tpu/ops/pallas_scan.py), driven there by `selective_scan_pallas_bwd`
+// after the checkpoint pass `_scan_ckpt_kernel`, whose port is scan_fwd.cu's
+// `scan_ckpt`. The C entry `scan_bwd` takes the forward's contract (scan_fwd.cu)
+// plus:
 //
-//   scan_ckpt: ckpt (B, nl, N, Din) float32, nl = ceil(L / 32): ckpt[b, c] is
-//              the state on entering tile c (t in [32c, 32c + 32)) in the
-//              scan's direction of walk.
-//   scan_bwd:  from ckpt and dy (B, L, Din): du, ddelta (B, L, Din),
-//              dBp, dCp (B, L, N), dA (Din, N), dD (Din,), all float32.
+//   ckpt (B, nl, N, Din) float32, nl = ceil(L / 32): ckpt[b, c] is the state
+//        on entering tile c (t in [32c, 32c + 32)) in the scan's direction of
+//        walk (scan_ckpt's output);
+//   from ckpt and dy (B, L, Din): du, ddelta (B, L, Din), dBp, dCp (B, L, N),
+//        dA (Din, N), dD (Din,), all float32.
 //
 // Per step of the walk (t in walk order s, a_s = exp(delta_s A), q_s = a_s h_{s-1},
 // so h_s = q_s + delta_s u_s Bp_s):
@@ -68,50 +69,6 @@
 #include "scan_common.cuh"
 
 namespace scan {
-
-template <int N>
-__global__ void __launch_bounds__(kThreads) scan_ckpt_kernel(const float* __restrict__ u,
-                                                             const float* __restrict__ delta,
-                                                             const float* __restrict__ A,
-                                                             const float* __restrict__ Bp, float* __restrict__ ckpt,
-                                                             int L, int din, long long b_sb, long long b_st,
-                                                             int reverse) {
-  constexpr int DT = channels_per_block(N);
-  __shared__ float s_u[kChunk * DT], s_d[kChunk * DT];
-  __shared__ float s_b[kChunk * N];
-  __shared__ float s_h[N * DT];  // the entry state, [state][channel], for row-wise stores
-
-  const int tiles = din / DT;
-  const int b = blockIdx.x / tiles;
-  const int d0 = (blockIdx.x - b * tiles) * DT;
-  const int dl = threadIdx.x / N, n = threadIdx.x - dl * N;
-  const float a_dn = A[(d0 + dl) * N + n];
-  const long long base = (long long)b * L * din;
-  const int nl = (L + kChunk - 1) / kChunk;
-
-  float h = 0.f;
-  for (int k = 0; k < nl; ++k) {
-    const int c = reverse ? nl - 1 - k : k;
-    const int t_lo = c * kChunk;
-    const int len = min(kChunk, L - t_lo);
-    s_h[n * DT + dl] = h;
-    load_rows<DT>(s_u, u, base, din, d0, t_lo, len);
-    load_rows<DT>(s_d, delta, base, din, d0, t_lo, len);
-    load_state_rows<N>(s_b, Bp, b_sb, b_st, b, t_lo, len);
-    __syncthreads();
-    const long long out = ((long long)b * nl + c) * N * din + d0;
-    for (int k2 = threadIdx.x; k2 < N * DT; k2 += kThreads) {
-      const int nn = k2 / DT, dd = k2 - nn * DT;
-      ckpt[out + (long long)nn * din + dd] = s_h[k2];
-    }
-    for (int j = 0; j < len; ++j) {
-      const int i = reverse ? len - 1 - j : j;
-      const float dt = s_d[i * DT + dl];
-      h = expf(dt * a_dn) * h + (dt * s_u[i * DT + dl]) * s_b[i * N + n];
-    }
-    __syncthreads();
-  }
-}
 
 // Floats of one staged tile: u, delta, dy rows; Bp, Cp rows; the entry state
 // as [channel][state], rows of N + 1.
@@ -385,14 +342,6 @@ __global__ void scan_bwd_reduce(const float* __restrict__ part_db, const float* 
 }
 
 template <int N>
-static int launch_ckpt(const float* u, const float* delta, const float* A, const float* Bp, float* ckpt, int batch,
-                       int L, int din, long long b_sb, long long b_st, int reverse, cudaStream_t stream) {
-  const int blocks = batch * (din / channels_per_block(N));
-  scan_ckpt_kernel<N><<<blocks, kThreads, 0, stream>>>(u, delta, A, Bp, ckpt, L, din, b_sb, b_st, reverse);
-  return (int)cudaGetLastError();
-}
-
-template <int N>
 static int launch_bwd(const float* u, const float* delta, const float* A, const float* Bp, const float* Cp,
                       const float* D, const float* dy, const float* ckpt, float* scratch, float* du, float* ddelta,
                       float* dbp, float* dcp, float* da, float* dd, int batch, int L, int din, long long b_sb,
@@ -450,17 +399,6 @@ extern "C" long long scan_bwd_scratch_floats(int batch, int L, int din, int n) {
   if (n <= 0) return 0;
   const long long tiles = din / scan::channels_per_block(n);
   return 2 * tiles * batch * (long long)L * n + (long long)batch * din * n + (long long)batch * din;
-}
-
-extern "C" int scan_ckpt(const float* u, const float* delta, const float* A, const float* Bp, float* ckpt, int batch,
-                         int L, int din, int n, long long b_sb, long long b_st, int reverse, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!scan::valid_shape(batch, L, din, n)) return (int)cudaErrorInvalidValue;
-  switch (n) {
-    case 8: return scan::launch_ckpt<8>(u, delta, A, Bp, ckpt, batch, L, din, b_sb, b_st, reverse, s);
-    case 16: return scan::launch_ckpt<16>(u, delta, A, Bp, ckpt, batch, L, din, b_sb, b_st, reverse, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 extern "C" int scan_bwd(const float* u, const float* delta, const float* A, const float* Bp, const float* Cp,

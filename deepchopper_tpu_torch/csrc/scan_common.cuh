@@ -1,8 +1,8 @@
-// Device code shared by the selective-scan kernels: valid_shape, exp2 on the
-// special-function units and the cp.async helpers (scan_fwd.cu, scan_bwd.cu's
-// scan_bwd), and the row loads of scan_bwd.cu's scan_ckpt.
+// Device code shared by the selective-scan kernels (scan_fwd.cu's scan_fwd and
+// scan_ckpt, scan_bwd.cu's scan_bwd): valid_shape, the checkpoint chunk, exp2
+// on the special-function units and the cp.async helpers.
 //
-// Layout of scan_bwd.cu's kernels: one block per (batch row b, tile of DT
+// Layout of scan_bwd.cu's kernel: one block per (batch row b, tile of DT
 // channels), one thread per (channel, state) of the tile, kThreads = DT * N
 // threads, thread index = channel * N + state. The block walks the whole
 // sequence in tiles of kChunk steps (absolute tiles: tile c covers t in
@@ -16,7 +16,7 @@
 namespace scan {
 
 constexpr int kThreads = 256;  // threads per block: DT channels x N states
-constexpr int kChunk = 32;     // steps per tile; also the checkpoint chunk (ops/scan.py CKPT_CHUNK)
+constexpr int kChunk = 32;     // the checkpoint chunk (ops/scan.py CKPT_CHUNK); scan_bwd's tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int channels_per_block(int n) { return kThreads / n; }
@@ -44,26 +44,5 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// dst[i * DT + dl] = src[base + (t_lo + i) * din + d0 + dl] for i < len, dl < DT.
-template <int DT>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, long long base, int din, int d0,
-                                          int t_lo, int len) {
-  for (int k = threadIdx.x; k < len * DT; k += kThreads) {
-    const int i = k / DT, dl = k - i * DT;
-    dst[k] = src[base + (long long)(t_lo + i) * din + d0 + dl];
-  }
-}
-
-// dst[i * N + n] = src[b * sb + (t_lo + i) * st + n]: Bp or Cp rows, which may be
-// strided slices of x_proj's output (unit stride along N).
-template <int N>
-__device__ __forceinline__ void load_state_rows(float* dst, const float* __restrict__ src, long long sb, long long st,
-                                                int b, int t_lo, int len) {
-  for (int k = threadIdx.x; k < len * N; k += kThreads) {
-    const int i = k / N, n = k - i * N;
-    dst[k] = src[(long long)b * sb + (long long)(t_lo + i) * st + n];
-  }
-}
 
 }  // namespace scan

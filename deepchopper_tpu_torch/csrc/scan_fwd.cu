@@ -1,22 +1,30 @@
-// Selective scan of the Mamba mixer (Caduceus), forward.
+// Selective scan of the Mamba mixer (Caduceus), forward, and the backward's
+// checkpoint pass, which walks the same recurrence.
 //
-// Replaces the Pallas TPU kernel `_scan_kernel` (deepchopper_tpu/ops/pallas_scan.py),
-// entered there through `selective_scan_pallas`. Same contract:
+// Replaces the Pallas TPU kernels `_scan_kernel` (deepchopper_tpu/ops/pallas_scan.py),
+// entered there through `selective_scan_pallas`, and `_scan_ckpt_kernel`, the
+// first pass of `selective_scan_pallas_bwd`. Same contracts:
 //
 //   u, delta (B, L, Din) float32, contiguous
 //   A        (Din, N)    float32
 //   Bp, Cp   (B, L, N)   float32, unit stride along N, strides (sb, st) otherwise
 //   D        (Din,)      float32
-//   y        (B, L, Din) float32:  h[t] = exp(delta[t] A) h[t-1] + delta[t] u[t] Bp[t],
-//                                  y[t] = sum_n Cp[t, n] h[t][n] + D u[t],  h = 0 before the walk.
+//   scan_fwd:  y (B, L, Din) float32:  h[t] = exp(delta[t] A) h[t-1] + delta[t] u[t] Bp[t],
+//                                      y[t] = sum_n Cp[t, n] h[t][n] + D u[t],  h = 0 before the walk.
+//   scan_ckpt: ckpt (B, nl, N, Din) float32, nl = ceil(L / 32): ckpt[b, c] is the
+//              state on entering chunk c (t in [32c, 32c + 32)) in the walk's
+//              direction, so ckpt[b, 0] of a forward walk and ckpt[b, nl - 1]
+//              of a reverse walk are zero.
 //   reverse != 0 walks t = L-1 .. 0 (flip(scan(flip(.))) without the flips).
 //
-// What bounds it on an H100. Operations: Din * N exps a token on the
+// What bounds them on an H100. Operations: Din * N exps a token on the
 // special-function units, 16 a clock per SM: 0.257 ms per 2^17 tokens at Din
-// 512, N 16 and 1.98 GHz. Bytes just below: u, delta read and y written once
-// (12 B a token-channel) plus Bp, Cp, 0.25 ms per 2^17 tokens at 3.35 TB/s.
+// 512, N 16 and 1.98 GHz. Bytes just below: for y, u, delta read and y written
+// once (12 B a token-channel) plus Bp, Cp, 0.25 ms per 2^17 tokens at 3.35
+// TB/s; for the checkpoints, u and delta (8 B) plus N / 32 states (2 B at N =
+// 16) and Bp, 0.17 ms.
 //
-// Design. The TPU kernel walks L-chunks in grid order and carries the
+// Design. The TPU kernels walk L-chunks in grid order and carry the
 // (bt, N, Din) state in VMEM scratch. Here one thread owns one channel of one
 // batch row: its N states h[n] and A[n] log2(e) live in registers, so a step
 // is, per state, one FMUL and one ex2.approx (exp(dt A) = exp2(dt A log2 e)),
@@ -24,22 +32,28 @@
 // the thread: no shuffles and no lane doing another's work. A block takes
 // `channels` consecutive channels of one batch row. Its inputs move in tiles
 // of `tile` steps staged in shared memory by cp.async (u and delta as whole
-// 16-byte chunks of rows, Bp and Cp as N floats a step, read back as float4
-// broadcasts), double buffered: the next tile's copy is in flight while this
-// one is walked, one barrier a tile. y leaves straight from registers, a
-// coalesced row of the block's channels a step.
+// 16-byte chunks of rows, Bp and, for y, Cp as N floats a step, read back as
+// float4 broadcasts), double buffered: the next tile's copy is in flight while
+// this one is walked, one barrier a tile. y leaves straight from registers, a
+// coalesced row of the block's channels a step. The checkpoint walk is the
+// same walk with other stores: no Cp and no y; where the walk enters a
+// 32-step chunk (tiles divide the chunk and segments start on chunk
+// boundaries, so a tile lies in one chunk), each thread writes its N states
+// straight from registers, a coalesced row of the block's channels a state.
 //
 // Where batch x Din / channels blocks cannot fill the card (the wide buckets:
 // 16 blocks at B = 4, L = 32768), the wrapper's plan (ops/scan.py
-// `scan_fwd_plan`) splits L into `segments` runs of `seg_len` steps, a whole
-// number of tiles each, and there are two launches:
-//   1. scan_fwd_kernel<N, true> walks every segment but the last in walk order
-//      from h = 0 and writes its end state h_end and its sum of dt per channel
-//      to the scratch;
-//   2. scan_fwd_kernel<N, false> folds, in each (row, channel tile, segment)
-//      block, the segments before its own in walk order, first walked first:
-//      h <- exp2(A log2(e) sum(dt)) h + h_end, then walks its segment from that
-//      state and writes y.
+// `scan_fwd_plan`, `scan_ckpt_plan`) splits L into `segments` runs of
+// `seg_len` steps, a whole number of tiles each (of 32-step chunks for the
+// checkpoints), and there are two launches:
+//   1. scan_fwd_kernel<N, Walk::kEnd> walks every segment but the last in walk
+//      order from h = 0 and writes its end state h_end and its sum of dt per
+//      channel to the scratch;
+//   2. scan_fwd_kernel<N, Walk::kY> (or Walk::kCkpt) folds, in each (row,
+//      channel tile, segment) block, the segments before its own in walk
+//      order, first walked first: h <- exp2(A log2(e) sum(dt)) h + h_end, then
+//      walks its segment from that state and writes y (or the checkpoints of
+//      the chunks it enters).
 // Segmenting doubles the exps of that path and puts `segments` times more
 // blocks in flight. There are no atomics: every result is bitwise repeatable.
 // Reverse walks the segments, the tiles in each and the steps in each tile
@@ -54,6 +68,13 @@ constexpr int kFwdMaxChannels = 128;  // threads a block: one channel each
 constexpr int kFwdMaxTile = 64;
 constexpr int kSmemLimit = 227 * 1024;
 
+// What a walk of one segment writes.
+enum class Walk {
+  kEnd,   // from h = 0: the segment's end state and sum of dt, to the scratch
+  kY,     // from the folded entry state: y
+  kCkpt,  // from the folded entry state: the state on entering each chunk
+};
+
 struct FwdArgs {
   const float* u;
   const float* delta;
@@ -62,6 +83,7 @@ struct FwdArgs {
   const float* Cp;
   const float* D;
   float* y;
+  float* ckpt;    // (B, nl, N, Din)
   float* h_end;   // (B, segments, N, Din): end state of each segment walked from 0
   float* dt_sum;  // (B, segments, Din): sum of dt over each segment
   long long b_sb, b_st, c_sb, c_st;
@@ -74,7 +96,7 @@ __host__ __device__ constexpr int tile_floats(int tile, int channels, int n) { r
 // Copy steps [t_lo, t_lo + len) of the block's rows into one tile buffer:
 // u and delta rows (channels floats each, 16-byte chunks when aligned), Bp
 // and, for the y walk, Cp (N floats a step). Issues one cp.async group.
-template <int N, bool kEnd>
+template <int N, bool kY>
 __device__ __forceinline__ void stage_tile(float* buf, const FwdArgs& p, long long row0, int b, int d0, int t_lo,
                                            int len) {
   const int cb = p.channels;
@@ -102,7 +124,7 @@ __device__ __forceinline__ void stage_tile(float* buf, const FwdArgs& p, long lo
   for (int k = tid; k < len * N; k += cb) {
     const int i = k / N, n = k - i * N;
     cp_async4(sb + k, p.Bp + b * p.b_sb + (long long)(t_lo + i) * p.b_st + n);
-    if (!kEnd) cp_async4(sc + k, p.Cp + b * p.c_sb + (long long)(t_lo + i) * p.c_st + n);
+    if (kY) cp_async4(sc + k, p.Cp + b * p.c_sb + (long long)(t_lo + i) * p.c_st + n);
   }
   cp_async_commit();
 }
@@ -127,7 +149,7 @@ __device__ __forceinline__ void fold_entry(float (&h)[N], const float (&a2)[N], 
 
 // One step of the N states: h <- exp2(dt a2) h + (dt u) Bp; for the y walk
 // also y += Cp h, states in order.
-template <int N, bool kEnd>
+template <int N, bool kY>
 __device__ __forceinline__ float walk_step(float (&h)[N], const float (&a2)[N], float dt, float bu,
                                            const float* sb, const float* sc) {
   const float4* bq = reinterpret_cast<const float4*>(sb);
@@ -140,7 +162,7 @@ __device__ __forceinline__ float walk_step(float (&h)[N], const float (&a2)[N], 
     h[4 * q + 1] = fmaf(exp2_approx(dt * a2[4 * q + 1]), h[4 * q + 1], bu * bv.y);
     h[4 * q + 2] = fmaf(exp2_approx(dt * a2[4 * q + 2]), h[4 * q + 2], bu * bv.z);
     h[4 * q + 3] = fmaf(exp2_approx(dt * a2[4 * q + 3]), h[4 * q + 3], bu * bv.w);
-    if (!kEnd) {
+    if (kY) {
       const float4 cv = cq[q];
       acc = fmaf(cv.x, h[4 * q + 0], acc);
       acc = fmaf(cv.y, h[4 * q + 1], acc);
@@ -152,9 +174,11 @@ __device__ __forceinline__ float walk_step(float (&h)[N], const float (&a2)[N], 
 }
 
 // kEnd: walk a segment from h = 0 and write its end state and sum of dt.
-// Otherwise: fold the segment's entry state, walk it and write y.
-template <int N, bool kEnd>
+// Otherwise: fold the segment's entry state, walk it and write y or the
+// checkpoints.
+template <int N, Walk kWalk>
 __global__ void __launch_bounds__(kFwdMaxChannels, 4) scan_fwd_kernel(const FwdArgs p) {
+  constexpr bool kEnd = kWalk == Walk::kEnd, kY = kWalk == Walk::kY;
   extern __shared__ __align__(16) float smem[];
   const int cb = p.channels;
   const int ctiles = p.din / cb;
@@ -175,15 +199,26 @@ __global__ void __launch_bounds__(kFwdMaxChannels, 4) scan_fwd_kernel(const FwdA
     h[n] = 0.f;
   }
   if (!kEnd) fold_entry<N>(h, a2, p, b, s, d);
-  const float dsk = kEnd ? 0.f : p.D[d];
+  const float dsk = kY ? p.D[d] : 0.f;
 
   const int per_buf = tile_floats(p.tile, cb, N);
   const int nt = (hi - lo + p.tile - 1) / p.tile;
   auto tile_lo = [&](int k) { return lo + (p.reverse ? nt - 1 - k : k) * p.tile; };
-  stage_tile<N, kEnd>(smem, p, row0, b, d0, tile_lo(0), min(p.tile, hi - tile_lo(0)));
+  stage_tile<N, kY>(smem, p, row0, b, d0, tile_lo(0), min(p.tile, hi - tile_lo(0)));
   float dsum = 0.f;
+  int chunk = -1;  // kCkpt: the chunk the walk is in
   for (int k = 0; k < nt; ++k) {
     const int t_lo = tile_lo(k), len = min(p.tile, hi - t_lo);
+    if constexpr (kWalk == Walk::kCkpt) {
+      if (t_lo / kChunk != chunk) {
+        // The walk enters a chunk with this tile: its entry state, one
+        // coalesced row of the block's channels a state.
+        chunk = t_lo / kChunk;
+        const long long o = ((long long)b * ((p.L + kChunk - 1) / kChunk) + chunk) * N * p.din + d;
+#pragma unroll
+        for (int n = 0; n < N; ++n) p.ckpt[o + (long long)n * p.din] = h[n];
+      }
+    }
     float* buf = smem + (k & 1) * per_buf;
     cp_async_wait_all();
     // Tile k has landed for every thread, and every thread is done with tile
@@ -191,7 +226,7 @@ __global__ void __launch_bounds__(kFwdMaxChannels, 4) scan_fwd_kernel(const FwdA
     __syncthreads();
     if (k + 1 < nt) {
       const int n_lo = tile_lo(k + 1);
-      stage_tile<N, kEnd>(smem + ((k + 1) & 1) * per_buf, p, row0, b, d0, n_lo, min(p.tile, hi - n_lo));
+      stage_tile<N, kY>(smem + ((k + 1) & 1) * per_buf, p, row0, b, d0, n_lo, min(p.tile, hi - n_lo));
     }
     const float* su = buf;
     const float* sd = su + p.tile * cb;
@@ -200,12 +235,9 @@ __global__ void __launch_bounds__(kFwdMaxChannels, 4) scan_fwd_kernel(const FwdA
     for (int j = 0; j < len; ++j) {
       const int i = p.reverse ? len - 1 - j : j;
       const float dt = sd[i * cb + tid], ut = su[i * cb + tid];
-      const float acc = walk_step<N, kEnd>(h, a2, dt, dt * ut, sb + i * N, sc + i * N);
-      if (kEnd) {
-        dsum += dt;
-      } else {
-        p.y[(row0 + t_lo + i) * p.din + d] = fmaf(dsk, ut, acc);
-      }
+      const float acc = walk_step<N, kY>(h, a2, dt, dt * ut, sb + i * N, sc + i * N);
+      if constexpr (kEnd) dsum += dt;
+      if constexpr (kY) p.y[(row0 + t_lo + i) * p.din + d] = fmaf(dsk, ut, acc);
     }
   }
   if (kEnd) {
@@ -228,22 +260,63 @@ static cudaError_t launch_one(Kernel kernel, int blocks, const FwdArgs& p, size_
   return cudaGetLastError();
 }
 
-template <int N>
+template <int N, Walk kOut>
 static int launch(const FwdArgs& p, int batch, cudaStream_t stream) {
   const size_t smem = 2 * sizeof(float) * (size_t)tile_floats(p.tile, p.channels, N);
   const int row_blocks = batch * (p.din / p.channels);
   if (p.segments > 1) {
-    const cudaError_t err = launch_one(scan_fwd_kernel<N, true>, row_blocks * (p.segments - 1), p, smem, stream);
+    const cudaError_t err =
+        launch_one(scan_fwd_kernel<N, Walk::kEnd>, row_blocks * (p.segments - 1), p, smem, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch_one(scan_fwd_kernel<N, false>, row_blocks * p.segments, p, smem, stream);
+  return (int)launch_one(scan_fwd_kernel<N, kOut>, row_blocks * p.segments, p, smem, stream);
 }
 
-// The plan the kernels take (ops/scan.py `scan_fwd_plan` makes it).
-inline bool valid_plan(int L, int din, int n, int channels, int tile, int segments, int seg_len) {
+// The plan the kernels take (ops/scan.py `scan_fwd_plan` and `scan_ckpt_plan`
+// make it). The checkpoint walk's segments start on chunk boundaries and its
+// tiles divide the chunk, so that no tile lies in two chunks.
+inline bool valid_plan(int L, int din, int n, int channels, int tile, int segments, int seg_len, bool ckpt) {
   return channels > 0 && channels <= kFwdMaxChannels && channels % 16 == 0 && din % channels == 0 && tile > 0 &&
          tile <= kFwdMaxTile && seg_len > 0 && seg_len % tile == 0 && segments == (L + seg_len - 1) / seg_len &&
+         (!ckpt || (seg_len % kChunk == 0 && kChunk % tile == 0)) &&
          2 * sizeof(float) * (size_t)tile_floats(tile, channels, n) <= (size_t)kSmemLimit;
+}
+
+// What both entries share: the checks, and the arguments but for Cp, D and
+// the output.
+static int make_args(FwdArgs& p, const float* u, const float* delta, const float* A, const float* Bp,
+                     float* scratch, int batch, int L, int din, int n, long long b_sb, long long b_st, int reverse,
+                     int channels, int tile, int segments, int seg_len, bool ckpt) {
+  if (!valid_shape(batch, L, din, n) || !valid_plan(L, din, n, channels, tile, segments, seg_len, ckpt) ||
+      (segments > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  p = FwdArgs{};
+  p.u = u;
+  p.delta = delta;
+  p.A = A;
+  p.Bp = Bp;
+  p.h_end = scratch;
+  p.dt_sum = scratch == nullptr ? nullptr : scratch + (long long)batch * segments * n * din;
+  p.b_sb = b_sb;
+  p.b_st = b_st;
+  p.L = L;
+  p.din = din;
+  p.channels = channels;
+  p.tile = tile;
+  p.segments = segments;
+  p.seg_len = seg_len;
+  p.reverse = reverse;
+  p.vec16 = ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(delta)) & 15) == 0;
+  return 0;
+}
+
+template <Walk kOut>
+static int launch_n(const FwdArgs& p, int batch, int n, cudaStream_t stream) {
+  switch (n) {
+    case 8: return launch<8, kOut>(p, batch, stream);
+    case 16: return launch<16, kOut>(p, batch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace scan
@@ -254,35 +327,26 @@ extern "C" int scan_fwd(const float* u, const float* delta, const float* A, cons
                         const float* D, float* y, float* scratch, int batch, int L, int din, int n, long long b_sb,
                         long long b_st, long long c_sb, long long c_st, int reverse, int channels, int tile,
                         int segments, int seg_len, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!scan::valid_shape(batch, L, din, n) || !scan::valid_plan(L, din, n, channels, tile, segments, seg_len) ||
-      (segments > 1 && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
   scan::FwdArgs p;
-  p.u = u;
-  p.delta = delta;
-  p.A = A;
-  p.Bp = Bp;
+  const int err = scan::make_args(p, u, delta, A, Bp, scratch, batch, L, din, n, b_sb, b_st, reverse, channels, tile,
+                                  segments, seg_len, false);
+  if (err != 0) return err;
   p.Cp = Cp;
   p.D = D;
   p.y = y;
-  p.h_end = scratch;
-  p.dt_sum = scratch == nullptr ? nullptr : scratch + (long long)batch * segments * n * din;
-  p.b_sb = b_sb;
-  p.b_st = b_st;
   p.c_sb = c_sb;
   p.c_st = c_st;
-  p.L = L;
-  p.din = din;
-  p.channels = channels;
-  p.tile = tile;
-  p.segments = segments;
-  p.seg_len = seg_len;
-  p.reverse = reverse;
-  p.vec16 = ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(delta)) & 15) == 0;
-  switch (n) {
-    case 8: return scan::launch<8>(p, batch, s);
-    case 16: return scan::launch<16>(p, batch, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return scan::launch_n<scan::Walk::kY>(p, batch, n, static_cast<cudaStream_t>(stream));
+}
+
+// `scratch` as scan_fwd's.
+extern "C" int scan_ckpt(const float* u, const float* delta, const float* A, const float* Bp, float* ckpt,
+                         float* scratch, int batch, int L, int din, int n, long long b_sb, long long b_st, int reverse,
+                         int channels, int tile, int segments, int seg_len, void* stream) {
+  scan::FwdArgs p;
+  const int err = scan::make_args(p, u, delta, A, Bp, scratch, batch, L, din, n, b_sb, b_st, reverse, channels, tile,
+                                  segments, seg_len, true);
+  if (err != 0) return err;
+  p.ckpt = ckpt;
+  return scan::launch_n<scan::Walk::kCkpt>(p, batch, n, static_cast<cudaStream_t>(stream));
 }

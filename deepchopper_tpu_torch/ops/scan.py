@@ -14,13 +14,14 @@ with h = 0 before the first step; `reverse=True` walks from t = L-1 down to
 
 It is differentiable through `ScanFn`, the counterpart of the JAX package's
 `custom_vjp`: the forward saves only its inputs. On CUDA tensors the forward
-launches `csrc/scan_fwd.cu` (the port of `_scan_kernel`) on the plan of
-`scan_fwd_plan`, and the backward
-launches `scan_ckpt` then `scan_bwd` of `csrc/scan_bwd.cu` (the ports of
-`_scan_ckpt_kernel` and `_scan_bwd_kernel`): the first stores the state at
-the entry of every `CKPT_CHUNK`-step chunk, the second walks the chunks
-against the scan's direction, recomputes the states of a chunk from its
-checkpoint and runs the cotangent recurrence. The kernels take N in
+launches `scan_fwd` of `csrc/scan_fwd.cu` (the port of `_scan_kernel`) on the
+plan of `scan_fwd_plan`, and the backward launches `scan_ckpt` of the same
+file on the plan of `scan_ckpt_plan`, then `scan_bwd` of `csrc/scan_bwd.cu`
+(the ports of `_scan_ckpt_kernel` and `_scan_bwd_kernel`): the first walks
+the forward's recurrence and stores the state at the entry of every
+`CKPT_CHUNK`-step chunk, the second walks the chunks against the scan's
+direction, recomputes the states of a chunk from its checkpoint and runs the
+cotangent recurrence. The kernels take N in
 KERNEL_STATES and Din a multiple of 256 / N (`scan_kernel_shape`); a CUDA
 scan of any other shape is brought to one in the wrapper
 (`scan_kernel_groups`), as the TPU kernel pads L and the batch to take every
@@ -49,6 +50,7 @@ launch_counts: dict[str, int] = _build.counters("scan_fwd", "scan_ckpt", "scan_b
 
 # Steps per checkpoint chunk: fixed by the kernels (`kChunk` in
 # csrc/scan_common.cuh). Chunk c covers t in [c * CKPT_CHUNK, (c + 1) * CKPT_CHUNK).
+# The checkpoint walk's segments are whole chunks (`scan_ckpt_plan`).
 CKPT_CHUNK = 32
 # States the kernels take (the flagship's 16, the tiny configs' 8). The
 # backward kernels run one thread per (channel, state), 256 a block, so Din
@@ -90,7 +92,7 @@ def _chunk_states(u, delta, A, Bp, h0) -> torch.Tensor:
     return ca * h0[:, None] + cb
 
 
-# -- the forward kernel's plan ---------------------------------------------------
+# -- the plans of scan_fwd.cu's walks ---------------------------------------------
 
 # The card's SMs (an H100 SXM). The plan depends on the shape alone, never on
 # the device it runs on.
@@ -107,10 +109,11 @@ FWD_SEG_WARPS = 32 * PLAN_SMS
 
 
 class ScanFwdPlan(NamedTuple):
-    """How `csrc/scan_fwd.cu` cuts a (B, L, Din, N) scan: blocks of
+    """How `csrc/scan_fwd.cu` cuts a (B, L, Din, N) walk: blocks of
     `channels` channels of one batch row, tiles of `tile` steps, and L split
-    into `segments` runs of `seg_len` steps (a whole number of tiles; the
-    last run may be shorter). `block_target` is the grid the plan aims for."""
+    into `segments` runs of `seg_len` steps (a whole number of tiles, and of
+    CKPT_CHUNK-step chunks for the checkpoint walk; the last run may be
+    shorter). `block_target` is the grid the plan aims for."""
 
     channels: int
     tile: int
@@ -119,7 +122,7 @@ class ScanFwdPlan(NamedTuple):
     block_target: int
 
     def blocks(self, batch: int, d_in: int) -> int:
-        """Blocks of the launch that writes y."""
+        """Blocks of the launch that writes y (or the checkpoints)."""
         return batch * (d_in // self.channels) * self.segments
 
     def scratch_floats(self, batch: int, d_in: int, n: int) -> int:
@@ -131,10 +134,30 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _segment_plan(seq_len: int, channels: int, tile: int, segments: int, block_target: int) -> ScanFwdPlan:
-    """L in at most `segments` runs of equal whole tiles (the last run shorter)."""
-    seg_len = _cdiv(_cdiv(seq_len, segments), tile) * tile
+def _segment_plan(seq_len: int, channels: int, tile: int, segments: int, block_target: int,
+                  unit: int | None = None) -> ScanFwdPlan:  # fmt: skip
+    """L in at most `segments` runs of equal whole units of steps (tiles by
+    default; the last run shorter)."""
+    unit = unit or tile
+    seg_len = _cdiv(_cdiv(seq_len, segments), unit) * unit
     return ScanFwdPlan(channels, tile, _cdiv(seq_len, seg_len), seg_len, block_target)
+
+
+def _walk_plan(batch: int, seq_len: int, d_in: int, n: int, unit: int, what: str) -> ScanFwdPlan:
+    if not scan_kernel_shape(n, d_in) or batch < 1 or seq_len < 1:
+        raise ValueError(f"{what}: no plan for (B={batch}, L={seq_len}, Din={d_in}, N={n})")
+    channels = next(c for c in (FWD_MAX_CHANNELS, 64, 32, 16) if d_in % c == 0)
+    warps = _cdiv(channels, 32)
+    row_blocks = batch * (d_in // channels)
+    if row_blocks * warps >= FWD_FILL_WARPS:
+        return _segment_plan(seq_len, channels, FWD_TILE, 1, _cdiv(FWD_FILL_WARPS, warps), unit)
+    target = _cdiv(FWD_SEG_WARPS, warps)
+    most = max(1, math.isqrt(seq_len))
+    for segments in range(min(_cdiv(target, row_blocks), most), most + 1):
+        plan = _segment_plan(seq_len, channels, FWD_TILE, segments, target, unit)
+        if row_blocks * plan.segments >= target:
+            break
+    return plan
 
 
 @functools.lru_cache(maxsize=4096)
@@ -146,20 +169,16 @@ def scan_fwd_plan(batch: int, seq_len: int, d_in: int, n: int) -> ScanFwdPlan:
     that bring the grid to FWD_SEG_WARPS warps, but into no more than
     isqrt(L): a block folds up to one end state per segment before its walk,
     so a segment is kept at least about as long as the count."""
-    if not scan_kernel_shape(n, d_in) or batch < 1 or seq_len < 1:
-        raise ValueError(f"scan_fwd_plan: no plan for (B={batch}, L={seq_len}, Din={d_in}, N={n})")
-    channels = next(c for c in (FWD_MAX_CHANNELS, 64, 32, 16) if d_in % c == 0)
-    warps = _cdiv(channels, 32)
-    row_blocks = batch * (d_in // channels)
-    if row_blocks * warps >= FWD_FILL_WARPS:
-        return _segment_plan(seq_len, channels, FWD_TILE, 1, _cdiv(FWD_FILL_WARPS, warps))
-    target = _cdiv(FWD_SEG_WARPS, warps)
-    most = max(1, math.isqrt(seq_len))
-    for segments in range(min(_cdiv(target, row_blocks), most), most + 1):
-        plan = _segment_plan(seq_len, channels, FWD_TILE, segments, target)
-        if row_blocks * plan.segments >= target:
-            break
-    return plan
+    return _walk_plan(batch, seq_len, d_in, n, FWD_TILE, "scan_fwd_plan")
+
+
+@functools.lru_cache(maxsize=4096)
+def scan_ckpt_plan(batch: int, seq_len: int, d_in: int, n: int) -> ScanFwdPlan:
+    """The checkpoint walk's plan: `scan_fwd_plan`'s, with segments of whole
+    CKPT_CHUNK-step chunks, so that each segment starts on a chunk boundary
+    and the walk enters every chunk inside one segment. FWD_TILE divides the
+    chunk, so no tile lies in two chunks."""
+    return _walk_plan(batch, seq_len, d_in, n, CKPT_CHUNK, "scan_ckpt_plan")
 
 
 def _plain_chunk(batch: int, chunk: int | None) -> int:
@@ -255,18 +274,24 @@ def scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse: bool = False, chunk:
 
 
 def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument types of scan_fwd.cu's C entry on a loaded build of it."""
+    """Set the argument types of scan_fwd.cu's `scan_fwd` on a loaded build of it."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.scan_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 4 + [i32] * 5 + [ptr]
     lib.scan_fwd.restype = i32
     return lib
 
 
+def bind_ckpt(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of scan_fwd.cu's `scan_ckpt` on a loaded build of it."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.scan_ckpt.argtypes = [ptr] * 6 + [i32] * 4 + [i64] * 2 + [i32] * 5 + [ptr]
+    lib.scan_ckpt.restype = i32
+    return lib
+
+
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of scan_bwd.cu's C entries on a loaded build of it."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scan_ckpt.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 2 + [i32, ptr]
-    lib.scan_ckpt.restype = i32
     lib.scan_bwd.argtypes = [ptr] * 15 + [i32] * 4 + [i64] * 4 + [i32, ptr]
     lib.scan_bwd.restype = i32
     lib.scan_bwd_scratch_floats.argtypes = [i32] * 4
@@ -276,7 +301,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _fwd_lib() -> ctypes.CDLL:
-    return bind_fwd(_build.load("scan_fwd.cu"))
+    return bind_ckpt(bind_fwd(_build.load("scan_fwd.cu")))
 
 
 @functools.lru_cache(maxsize=None)
@@ -405,16 +430,25 @@ def _scan_fwd_launch(u, delta, A, Bp, Cp, D, y, reverse: bool, plan: ScanFwdPlan
 
 
 def scan_ckpt_cuda(u, delta, A, Bp, reverse: bool = False) -> torch.Tensor:
-    """Launch `scan_ckpt` of `csrc/scan_bwd.cu`: the chunk-entry states
-    (B, nl, N, Din), as `scan_ckpt_reference` at chunk CKPT_CHUNK."""
+    """Launch `scan_ckpt` of `csrc/scan_fwd.cu` on the plan of
+    `scan_ckpt_plan`: the chunk-entry states (B, nl, N, Din), as
+    `scan_ckpt_reference` at chunk CKPT_CHUNK. A split plan makes two
+    launches (the segments' end states, then the checkpoints); the call
+    counts as one launch."""
     _check_kernel_args(u, delta, A, Bp)
     batch, seq_len, d_in = u.shape
     a = A.contiguous()
-    ckpt = torch.empty((batch, _nl(seq_len), a.shape[1], d_in), dtype=torch.float32, device=u.device)
+    n = a.shape[1]
+    plan = scan_ckpt_plan(batch, seq_len, d_in, n)
+    ckpt = torch.empty((batch, _nl(seq_len), n, d_in), dtype=torch.float32, device=u.device)
+    floats = plan.scratch_floats(batch, d_in, n)
+    scratch = torch.empty(floats, dtype=torch.float32, device=u.device) if floats else None
     _build.launch(
-        _bwd_lib().scan_ckpt, u,
+        _fwd_lib().scan_ckpt, u,
         u.data_ptr(), delta.data_ptr(), a.data_ptr(), Bp.data_ptr(), ckpt.data_ptr(),
-        batch, seq_len, d_in, a.shape[1], Bp.stride(0), Bp.stride(1), int(reverse),
+        None if scratch is None else scratch.data_ptr(),
+        batch, seq_len, d_in, n, Bp.stride(0), Bp.stride(1), int(reverse),
+        plan.channels, plan.tile, plan.segments, plan.seg_len,
         what=f"scan_ckpt at (B={batch}, L={seq_len}, Din={d_in})",
     )  # fmt: skip
     launch_counts["scan_ckpt"] += 1

@@ -176,6 +176,35 @@ def test_scan_fwd_is_bitwise_repeatable(cuda, shape, reverse):
     assert torch.equal(first, second)  # no atomics; segment end states folded in a fixed order
 
 
+# The checkpoint walk (scan_fwd.cu's scan_ckpt) on the plan of
+# ops/scan.scan_ckpt_plan: segmented at (4, 32768) (69 segments of 480 steps)
+# and at 20000 (a ragged last segment); one segment at L = 1000 (a ragged
+# last chunk and tile, walked first in reverse); N = 8 at 1000 and 33.
+CKPT_SHAPES = [(4, 32768, 512, 16), (1, 20000, 512, 16), (2, 1000, 512, 16), (3, 1000, 64, 8), (3, 33, 64, 8)]
+
+
+@pytest.mark.parametrize("shape", CKPT_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_ckpt_matches_plain_and_repeats(cuda, shape, reverse):
+    """Within 1e-5 of max|ref| of the plain checkpoints, two calls bitwise
+    equal (one tally each, segmented or not), the walk's first chunk zero,
+    and scan_bwd from them within SCAN_GRADS's limits."""
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, Cp, D, dy = _scan_inputs(*shape, cuda, seed=shape[1] + 2)
+    scan.reset_launch_counts()
+    first = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+    second = scan.scan_ckpt_cuda(u, delta, A, Bp, reverse)
+    torch.cuda.synchronize()
+    assert scan.launch_counts["scan_ckpt"] == 2
+    assert torch.equal(first, second)  # no atomics; segment end states folded in a fixed order
+    assert not first[:, -1 if reverse else 0].any()
+    assert _rel(first, scan.scan_ckpt_reference(u, delta, A, Bp, reverse)) <= 1e-5
+    grads = scan.scan_bwd_cuda(u, delta, A, Bp, Cp, D, dy, first, reverse)
+    for (name, tol), g, w in zip(SCAN_GRADS, grads, scan.scan_bwd_reference(u, delta, A, Bp, Cp, D, dy, reverse)):
+        assert _rel(g, w) <= tol, name
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gradient_through_scan_fn_on_the_card(cuda, reverse):
     from deepchopper_tpu_torch.ops import scan
@@ -211,6 +240,19 @@ def test_scan_fwd_takes_rows_off_16_byte_alignment(cuda, reverse):
     y = scan.scan_fwd_cuda(_off_alignment(u), _off_alignment(delta), A, Bp, Cp, D, reverse)
     torch.cuda.synchronize()
     assert _rel(y, scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)) <= 1e-5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_ckpt_takes_rows_off_16_byte_alignment(cuda, reverse):
+    """Contiguous u and delta that start 4 bytes past an alignment: the
+    checkpoint walk stages them in 4-byte copies (a segmented plan here)."""
+    from deepchopper_tpu_torch.ops import scan
+
+    u, delta, A, Bp, _Cp, _D, _dy = _scan_inputs(2, 300, 64, 16, cuda, seed=11)
+    assert scan.scan_ckpt_plan(2, 300, 64, 16).segments > 1
+    ckpt = scan.scan_ckpt_cuda(_off_alignment(u), _off_alignment(delta), A, Bp, reverse)
+    torch.cuda.synchronize()
+    assert _rel(ckpt, scan.scan_ckpt_reference(u, delta, A, Bp, reverse)) <= 1e-5
 
 
 @pytest.mark.parametrize("reverse", [False, True])
