@@ -21,7 +21,9 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      flagship batch shapes (forward B = 2^17 // W, backward min(512, 2^17 //
      W)), each again in bfloat16, timed beside the least time the card could
      take (bytes at 3.35 TB/s, f32 flops at 67 TFLOP/s) and, for the
-     forward, beside the radix-2 design's time; the forward's call is
+     forward, beside the radix-2 design's time, for the backward with the
+     layout its kernel runs (rows, pair or park) and the time of the filter
+     VJP, the one part of its call left in PyTorch; the forward's call is
      split into kernel, the wrapper's device work and host time at W = 1024,
      8192 and 32768 (torch.profiler).
    - the three selective-scan kernels at Caduceus's widths (Din = 512,
@@ -406,7 +408,9 @@ def phase_bwd_kernel() -> dict:
     """The backward kernel against its plain version at D = 256, B = 3 (odd)
     at every ladder width, in f32 (1e-4 of each gradient's max) and bf16
     (1e-2), bitwise repeatable; then at the flagship training shapes in bf16,
-    held again and timed beside the bound."""
+    held again and timed beside the bound, each width with the layout the
+    kernel runs and the time of the part of the call left in PyTorch (the
+    filter's VJP)."""
     import torch
 
     from deepchopper_tpu_torch.data.bucketing import default_buckets
@@ -433,12 +437,12 @@ def phase_bwd_kernel() -> dict:
         worst = max(worst, err)
         ms = time_ms(lambda: mixer.mixer_bwd_cuda(*args))
         plain_ms = time_ms(lambda: mixer.mixer_bwd_reference(*args), reps=3)
-        # The PyTorch part of the wrapper alone: short-conv adjoint and filter vjp.
+        # The PyTorch part of the wrapper alone: the filter's VJP on dkhat.
         n = mixer.fft_size(seq_len)
-        dgates = torch.randn(batch, 3 * d_model, seq_len, device="cuda")
         dkhat = torch.randn(d_model, n // 2 + 1, dtype=torch.complex64, device="cuda")
-        tail_ms = time_ms(lambda: mixer._grads_from_cotangents(args[0], dgates, dkhat, *args[2:], n), reps=3)
-        del dgates, dkhat
+        tail_ms = time_ms(lambda: mixer._filter_vjp(dkhat, args[4], args[5], n), reps=3)
+        plan = mixer.mixer_bwd_plan(batch, d_model, seq_len)
+        del dkhat
         nbytes, flops = mixer_bwd_bound(batch, d_model, seq_len, 2)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
@@ -446,7 +450,8 @@ def phase_bwd_kernel() -> dict:
                      ("ops_ms", ops_ms), ("bound_ms", bound)):  # fmt: skip
             totals[k] += v
         print(
-            f"  W={seq_len:6d} B={batch:4d} err {err:.2e} ({rel:.1e})  kernel {ms:8.3f} ms (PyTorch tail {tail_ms:.3f})  "
+            f"  W={seq_len:6d} B={batch:4d} {plan['layout']:4s} (G {plan['G']:2d}, {plan['threads']} threads, "
+            f"{plan['groups']} groups) err {err:.2e} ({rel:.1e})  kernel {ms:8.3f} ms (PyTorch tail {tail_ms:.3f})  "
             f"plain {plain_ms:8.3f} ms  bound {bound:.3f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
             f"bytes {bytes_ms:.3f}, f32 ops {ops_ms:.3f})  kernel/bound {ms / bound:.1f}x"
         )

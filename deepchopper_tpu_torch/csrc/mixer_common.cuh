@@ -1,8 +1,10 @@
 // Device code shared by the FFT-conv kernels (mixer_fwd.cu, mixer_bwd.cu,
-// fftconv.cuh): complex helpers, the gates' 3-tap short conv, in-place radix-2
-// FFT stages in shared memory (mixer_fwd.cu runs fft_radix.cuh's passes
-// instead), and the split/merge that turn a complex length-M transform of a
-// packed real sequence into its length-2M real spectrum and back.
+// mixer_inproj_fwd.cu, fftconv.cuh): complex helpers, the taps of the gates'
+// 3-tap short conv, the mixers' 16-byte chunks of a row, in-place radix-2 FFT
+// stages in shared memory (only fftconv.cuh's kernels still run them; the
+// mixers run fft_radix.cuh's passes), and the split/merge that turn a complex
+// length-M transform of a packed real sequence into its length-2M real
+// spectrum and back.
 //
 // Conventions. N = 2M is the real transform length (a power of two), tw[j] =
 // exp(-2 pi i j / N) for j in [0, M]. A real sequence x of length N is packed as
@@ -43,19 +45,71 @@ struct Gate {
   }
 };
 
-// Short-convolved gate value at position n (n < L), float32.
+// Positions a thread takes at once in the mixers: one 16-byte vector of the dtype.
 template <typename T>
-__device__ __forceinline__ float gate(const T* row, int n, const Gate& g) {
-  const float xm2 = n >= 2 ? to_f(row[n - 2]) : 0.f;
-  const float xm1 = n >= 1 ? to_f(row[n - 1]) : 0.f;
-  return g.k0 * xm2 + g.k1 * xm1 + g.k2 * to_f(row[n]) + g.b;
+struct Chunk;
+template <>
+struct Chunk<float> {
+  static constexpr int P = 4;
+};
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int P = 8;
+};
+
+__device__ __forceinline__ void load16(const float* p, float* x) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = u.z;
+  x[3] = u.w;
 }
 
-// w[n] = v[n] * x1[n] for n < L, zero beyond.
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bfloat16 is the top half of its float32
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store16(float* p, const float* y) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* y) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * i])) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * i + 1])) << 16);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// x[i] = row[n0 + i] for i < P, zero at n >= L.
 template <typename T>
-__device__ __forceinline__ float wval(const T* x1, const T* v, const Gate& g1, const Gate& gv, int n, int L) {
-  if (n >= L) return 0.f;
-  return gate(v, n, gv) * gate(x1, n, g1);
+__device__ __forceinline__ void load_chunk(const T* row, int n0, int L, bool vec, float* x) {
+  constexpr int P = Chunk<T>::P;
+  if (vec && n0 + P <= L) {
+    load16(row + n0, x);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) x[i] = n0 + i < L ? to_f(row[n0 + i]) : 0.f;
+  }
+}
+
+// W_M^m = tw[2m] for the P/2 values m = n0/2 + p of a chunk (m < lim), conjugated or not.
+template <int P, bool CONJ>
+__device__ __forceinline__ void chunk_twiddles(const float2* tw, int n0, int lim, float2* twm) {
+#pragma unroll
+  for (int p = 0; p < P / 2; ++p) {
+    const int m = n0 / 2 + p;
+    const float2 w = m < lim ? __ldg(&tw[2 * m]) : make_float2(0.f, 0.f);
+    twm[p] = CONJ ? cconj(w) : w;
+  }
 }
 
 __device__ __forceinline__ int brev(int x, int bits) {

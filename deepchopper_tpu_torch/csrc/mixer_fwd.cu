@@ -91,62 +91,6 @@ struct Args {
   bool vec_out;  // the same for out
 };
 
-// Positions a thread takes at once: one 16-byte vector of the dtype.
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<float> {
-  static constexpr int P = 4;
-};
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int P = 8;
-};
-
-__device__ __forceinline__ void load16(const float* p, float* x) {
-  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
-  x[0] = u.x;
-  x[1] = u.y;
-  x[2] = u.z;
-  x[3] = u.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // a bfloat16 is the top half of its float32
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void store16(float* p, const float* y) {
-  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* y) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * i])) |
-           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * i + 1])) << 16);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// x[i] = row[n0 + i] for i < P, zero at n >= L.
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* row, int n0, int L, bool vec, float* x) {
-  constexpr int P = Chunk<T>::P;
-  if (vec && n0 + P <= L) {
-    load16(row + n0, x);
-  } else {
-#pragma unroll
-    for (int i = 0; i < P; ++i) x[i] = n0 + i < L ? to_f(row[n0 + i]) : 0.f;
-  }
-}
-
 // g[i] = the short-convolved gate at n0 + i, i < P. The lane before holds
 // the chunk n0 - P of the same row, except at a warp's first lane and at a
 // row's first chunk, which take the two positions from memory (zeros before
@@ -166,17 +110,6 @@ __device__ __forceinline__ void gate_chunk(const T* row, int n0, int L, bool vec
   g[1] = gt.k0 * m1 + gt.k1 * x[0] + gt.k2 * x[1] + gt.b;
 #pragma unroll
   for (int i = 2; i < P; ++i) g[i] = gt.k0 * x[i - 2] + gt.k1 * x[i - 1] + gt.k2 * x[i] + gt.b;
-}
-
-// W_M^m = tw[2m] for the P/2 values m = n0/2 + p of a chunk (m < lim), conjugated or not.
-template <int P, bool CONJ>
-__device__ __forceinline__ void chunk_twiddles(const float2* tw, int n0, int lim, float2* twm) {
-#pragma unroll
-  for (int p = 0; p < P / 2; ++p) {
-    const int m = n0 / 2 + p;
-    const float2 w = m < lim ? __ldg(&tw[2 * m]) : make_float2(0.f, 0.f);
-    twm[p] = CONJ ? cconj(w) : w;
-  }
 }
 
 // One chunk of z: z[m] = w[2m] + i w[2m+1], w = v * x1 (zero at n >= L), for

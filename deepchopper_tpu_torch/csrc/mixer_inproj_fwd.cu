@@ -136,32 +136,6 @@ struct Tile {
   }
 };
 
-// Positions a thread stores at once: one 16-byte vector of the dtype.
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<float> {
-  static constexpr int P = 4;
-};
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int P = 8;
-};
-
-__device__ __forceinline__ void store16(float* p, const float* y) {
-  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* y) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * i])) |
-           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * i + 1])) << 16);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 template <typename T>
 __device__ __forceinline__ T zero();
 template <>
@@ -423,7 +397,7 @@ __device__ void project(const Args& a, unsigned char* smem, int b, int c0, int t
         float g2[2], w[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          // The expression of mixer_common's gate(): k0 p[n-2] + k1 p[n-1] + k2 p[n] + b.
+          // The other mixers' gate expression: k0 p[n-2] + k1 p[n-1] + k2 p[n] + b.
           g2[e] = k2[0] * p2[e - 2] + k2[1] * p2[e - 1] + k2[2] * p2[e] + k2[3];
           const float x1 = k1[0] * p1[e - 2] + k1[1] * p1[e - 1] + k1[2] * p1[e] + k1[3];
           const float v = kv[0] * pv[e - 2] + kv[1] * pv[e - 1] + kv[2] * pv[e] + kv[3];

@@ -138,13 +138,32 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("mixer_bwd.cu")
+    return bind_bwd(_build.load("mixer_bwd.cu"))
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a library built from `csrc/mixer_bwd.cu`."""
     ptr = ctypes.c_void_p
-    lib.mixer_bwd.argtypes = [ptr] * 9 + [ctypes.c_int] * 5 + [ptr]
+    lib.mixer_bwd.argtypes = [ptr] * 10 + [ctypes.c_int] * 5 + [ptr]
     lib.mixer_bwd.restype = ctypes.c_int
     lib.mixer_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.mixer_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.mixer_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mixer_bwd_plan.restype = None
     return lib
+
+
+BWD_LAYOUTS = ("rows", "pair", "park")
+
+
+def mixer_bwd_plan(batch: int, d_model: int, seq_len: int) -> dict:
+    """The layout `csrc/mixer_bwd.cu` runs at this shape (`mixer_bwd_plan`):
+    layout (rows, pair or park), V, rows a block at once (G), threads and
+    shared bytes a CTA, and row groups (blocks a channel)."""
+    out = (ctypes.c_int * 6)()
+    _bwd_lib().mixer_bwd_plan(batch, d_model, fft_size(seq_len).bit_length() - 1, out)
+    return {"layout": BWD_LAYOUTS[out[0]], "V": out[1], "G": out[2], "threads": out[3], "smem": out[4],
+            "groups": out[5]}  # fmt: skip
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -257,6 +276,18 @@ def _grads_from_cotangents(proj_bm, dgates, dkhat, k_short, b_short, k_long, bia
     )
 
 
+def _filter_vjp(dkhat, k_long, bias, n: int):
+    """(dk_long, dbias) at the filter-spectrum cotangent dkhat (bins 0..n/2,
+    as the kernel sums them), in closed form. `filter_spectrum` is rfft(k,
+    n) / n of the filter with the bias added at tap 0, so with the doubled
+    half-spectrum cotangent g of `_grads_from_cotangents` the gradient of tap
+    t is Re(sum_k g_k e^(2 pi i k t / n)) / n = irfft(dkhat, n)[t]: one
+    cuFFT call where autograd of `filter_spectrum` makes a dozen launches
+    (tests/test_torch_port_mixer_bwd_plan.py holds the two together)."""
+    g = torch.fft.irfft(dkhat, n=n, dim=-1)[:, : k_long.shape[0]]
+    return g.T.contiguous().to(k_long.dtype), g[:, 0].to(bias.dtype)
+
+
 def mixer_bwd_reference(proj_bm, dy_bm, k_short, b_short, k_long, bias):
     """Plain PyTorch backward of the mixer (FFT at N = 2L, as
     `mixer_reference`): (dproj, dk_short, db_short, dk_long, dbias)."""
@@ -266,8 +297,9 @@ def mixer_bwd_reference(proj_bm, dy_bm, k_short, b_short, k_long, bias):
 
 
 def mixer_bwd_cuda(proj_bm, dy_bm, k_short, b_short, k_long, bias):
-    """Launch `csrc/mixer_bwd.cu` on the current stream (no synchronise), then
-    the short-conv and filter adjoints in PyTorch:
+    """Launch `csrc/mixer_bwd.cu` on the current stream (no synchronise): dproj
+    and the short-conv sums come from the kernel, (dk_long, dbias) from the
+    filter's VJP on its dkhat in PyTorch:
     (dproj, dk_short, db_short, dk_long, dbias)."""
     _check_kernel_args(proj_bm, k_short, b_short, k_long, bias)
     batch, width, seq_len = proj_bm.shape
@@ -284,19 +316,25 @@ def mixer_bwd_cuda(proj_bm, dy_bm, k_short, b_short, k_long, bias):
     bsh = b_short.float().contiguous()
     khat = filter_spectrum(k_long, bias, n)
     tw = _twiddles(n, dev)
-    dgates = torch.empty((batch, width, seq_len), dtype=torch.float32, device=dev)
+    dproj = torch.empty_like(proj)
     dkhat = torch.empty((d_model, n // 2 + 1), dtype=torch.complex64, device=dev)
+    dsh = torch.empty((4, width), dtype=torch.float32, device=dev)  # tap sums 0-2, bias sums
     lib = _bwd_lib()
     scratch = torch.empty(lib.mixer_bwd_scratch_bytes(batch, d_model, log2n), dtype=torch.uint8, device=dev)
     _build.launch(
         lib.mixer_bwd, proj,
         proj.data_ptr(), dy.data_ptr(), taps_f.data_ptr(), bsh.data_ptr(), khat.data_ptr(), tw.data_ptr(),
-        scratch.data_ptr(), dgates.data_ptr(), dkhat.data_ptr(),
+        scratch.data_ptr(), dproj.data_ptr(), dkhat.data_ptr(), dsh.data_ptr(),
         batch, d_model, seq_len, log2n, _DTYPE_CODES[proj.dtype],
         what=f"mixer_bwd at (B={batch}, D={d_model}, L={seq_len})",
     )  # fmt: skip
     launch_counts["mixer_bwd"] += 1
-    return _grads_from_cotangents(proj, dgates, dkhat, k_short, b_short, k_long, bias, n)
+    return (
+        dproj,
+        dsh[:3].reshape(3, 1, width).to(k_short.dtype),
+        dsh[3].to(b_short.dtype),
+        *_filter_vjp(dkhat, k_long, bias, n),
+    )
 
 
 class MixerFn(torch.autograd.Function):

@@ -80,8 +80,12 @@ def _bwd_inputs(batch, d_model, seq_len, dtype, device, seed=0):
     return proj, dy.to(device, dtype), k_short, b_short, k_long, bias
 
 
-# Same widths as the forward; B = 3 is odd, so the batch groups are uneven.
-@pytest.mark.parametrize("seq_len", [256, 300, 1000, 1280, 16384, 24576, 32768])
+# Same widths as the forward, and one at each transform length of the
+# kernel's layouts (rows kernel up to N = 8192: 4096 there; the two-CTA cluster
+# at N = 16384 (8192) and 32768 (16384), with the park at 65536 (24576,
+# 32768)); B = 3 is odd, so the batch groups are uneven; 300 (bf16) and 1001
+# are not whole 16-byte chunks.
+@pytest.mark.parametrize("seq_len", [256, 300, 1000, 1280, 16384, 24576, 32768, 4096, 8192, 1001])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 def test_mixer_bwd_kernel_matches_plain(cuda, seq_len, dtype, tol):
     args = _bwd_inputs(3, 8, seq_len, dtype, cuda, seed=seq_len)
@@ -95,6 +99,73 @@ def test_mixer_bwd_kernel_matches_plain(cuda, seq_len, dtype, tol):
         assert g.dtype == r.dtype and g.shape == r.shape
         assert torch.equal(g, a)  # no atomics: bitwise repeatable
         assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+def _check_bwd(args, tol):
+    """Kernel vs plain, each gradient within tol of its max|ref|; two calls
+    bitwise equal."""
+    mixer.reset_launch_counts()
+    got = mixer.mixer_bwd_cuda(*args)
+    again = mixer.mixer_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert mixer.launch_counts["mixer_bwd"] == 2
+    ref = mixer.mixer_bwd_reference(*args)
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, a)
+        assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+# One width in each layout (rows with G = 8 rows a block at 256 and one row a
+# block at 4096, pair at 8192 and 16384, park at 32768); B = 1, and B = 13
+# (the rows kernel's last set of 8 part empty); D = 256 with B = 5 makes one
+# block (a cluster from 8192 on) walk all five rows of its channel.
+@pytest.mark.parametrize("seq_len", [256, 4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("batch,d_model", [(1, 8), (13, 8), (5, 256)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_mixer_bwd_layouts_and_batches(cuda, seq_len, batch, d_model, dtype, tol):
+    layout = mixer.mixer_bwd_plan(batch, d_model, seq_len)["layout"]
+    assert layout == {256: "rows", 4096: "rows", 8192: "pair", 16384: "pair", 32768: "park"}[seq_len]
+    _check_bwd(_bwd_inputs(batch, d_model, seq_len, dtype, cuda, seed=seq_len + batch), tol)
+
+
+def _off_alignment(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    shift = 4 // t.element_size()
+    out = flat[shift : shift + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("seq_len", [1000, 16384])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_mixer_bwd_takes_rows_off_16_byte_alignment(cuda, seq_len, dtype, tol):
+    """L = 1000 is a whole number of chunks; rows off 16-byte alignment take
+    the scalar loads and stores."""
+    proj, dy, *params = _bwd_inputs(3, 8, seq_len, dtype, cuda, seed=seq_len + 11)
+    proj, dy = _off_alignment(proj), _off_alignment(dy)
+    assert proj.data_ptr() % 16 and dy.data_ptr() % 16
+    _check_bwd((proj, dy, *params), tol)
+
+
+def test_mixer_bwd_extra_memory_is_below_one_float32_gate_tensor(cuda):
+    """At the flagship's training shape (B = 128, D = 256, L = 1024, bf16) a
+    call allocates dproj, the partials and the small outputs: less than one
+    (B, 3D, L) float32 tensor beyond its inputs (the first design wrote the
+    gate cotangents as one)."""
+    args = _bwd_inputs(128, 256, 1024, torch.bfloat16, cuda, seed=9)
+    mixer.mixer_bwd_cuda(*args)  # first-use allocations (twiddle table)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = mixer.mixer_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < 128 * 3 * 256 * 1024 * 4, extra
+    ref = mixer.mixer_bwd_reference(*args)
+    for g, r in zip(got, ref):
+        assert (g.float() - r.float()).abs().max().item() <= 1e-2 * r.float().abs().max().item()
 
 
 def test_gradient_through_mixer_fn_on_the_card(cuda):

@@ -181,6 +181,7 @@ def test_chip_smoke_exits_nonzero_without_cuda(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "deepchopper_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
     banned = ("jax", "flax", "optax", "deepchopper_tpu")
     bad = []
     for path in files:
