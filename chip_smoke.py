@@ -37,8 +37,11 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
      (channels a block, segments).
    - the gated conv (gated_fwd, the unfused Hyena route) and the
      in_proj-fused mixer (mixer_inproj_fwd) at D = 256, B = 2, f32 (1e-4 of
-     max|ref|) and bf16 (1e-2); the causal conv (conv_fwd) in f32 only. Then
-     each at B = 2^17 // W, timed beside its plain version and its bound (the
+     max|ref|) and bf16 (1e-2); the causal conv (conv_fwd) in f32 only; the
+     gated and causal convs again across their layouts' boundaries and at
+     off-ladder widths with D = 12, 20 (and 6 for the conv) and odd batches,
+     each width's layout printed (rows of G rows or channels, or the two-CTA
+     pair). Then each at B = 2^17 // W, timed beside its plain version and its bound (the
      in_proj kernel's also counts its GEMM at the bf16 tensor-core peak), the
      in_proj kernel also beside the composed route (torch.matmul + mixer_fwd),
      the conv beside its library call (depthwise F.conv1d).
@@ -1471,10 +1474,36 @@ def phase_profile(fq: Path) -> None:
 BF16_TENSOR_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 ROUTE_KERNELS = ("gated_fwd", "conv_fwd", "mixer_inproj_fwd")
 ROUTE_SOURCES = {
-    "gated_fwd": ("gated_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:428, deepchopper_tpu/ops/pallas_fft.py:1484"),
+    "gated_fwd": ("mixer_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:428, deepchopper_tpu/ops/pallas_fft.py:1484"),
     "conv_fwd": ("conv_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:204"),
     "mixer_inproj_fwd": ("mixer_inproj_fwd.cu", "deepchopper_tpu/ops/pallas_fft.py:1014"),
 }
+
+
+# Widths that cross the route kernels' layouts (gated_fwd: mixer_fwd.cu's rows
+# kernel, G = 16 batch rows a block to L = 256, 8, 4, 2 to 512, 1024, 2048, 1
+# to 16384, the cluster above; conv_fwd: G = 8 channels a block to 512, 4 to
+# 1024, 2 to 8192, 1 to 16384, the cluster above) and off-ladder widths, with
+# D % 8 != 0, D not a multiple of G and odd batches.
+ROUTE_EDGE_WIDTHS = (256, 300, 512, 513, 1000, 1024, 1025, 1280, 2048, 2049, 4096, 8192, 8193, 16384, 24576, 32768)
+ROUTE_EDGE_SHAPES = {"gated_fwd": ((3, 12), (1, 20)), "conv_fwd": ((3, 12), (1, 20), (3, 6))}
+
+
+def route_layout(kind: str, batch: int, d_model: int, seq_len: int) -> str:
+    """The layout `kind` runs at this shape: gated_fwd mixer_fwd.cu's (rows of
+    G batch rows of one channel, at least 256 threads a block, or the two-CTA
+    pair at N = 65536); conv_fwd `ops/conv.conv_fwd_plan`'s (rows of G
+    channels of one batch row, or the pair)."""
+    from deepchopper_tpu_torch.ops import conv, mixer
+
+    if kind == "conv_fwd":
+        plan = conv.conv_fwd_plan(batch, d_model, seq_len)
+        return "pair" if plan["layout"] == "pair" else f"rows G{plan['G']}"
+    h = mixer.fft_size(seq_len) // 4
+    if h == 1 << 14:
+        return "pair"
+    pair_threads = 2 * h // conv.values_per_thread(h)
+    return f"rows G{max(1, 256 // pair_threads)}"
 
 
 def route_inputs(kind: str, batch: int, d_model: int, seq_len: int, dtype, seed: int) -> tuple:
@@ -1552,7 +1581,9 @@ def conv_library_ms(v, k, bias) -> float:
 def phase_route_kernels() -> list[dict]:
     """gated_fwd and mixer_inproj_fwd against their plain versions at D = 256,
     B = 2 at every ladder width in float32 (1e-4 of max|ref|) and bfloat16
-    (1e-2); conv_fwd in float32 only (its contract). Then each at the
+    (1e-2); conv_fwd in float32 only (its contract). Then gated_fwd and
+    conv_fwd at ROUTE_EDGE_WIDTHS with ROUTE_EDGE_SHAPES, each width's
+    layout printed. Then each at the
     flagship batch shapes (B = 2^17 // W; gated and in_proj in bf16, conv in
     f32), held again and timed beside its plain version and its bound; the
     in_proj kernel also beside the composed route on the same inputs
@@ -1577,6 +1608,21 @@ def phase_route_kernels() -> list[dict]:
                 torch.cuda.synchronize()
                 err, rel = within(got, plain(*args), tol, f"{kind} B=2 L={seq_len} {dtype}")
                 line += f"  {kind} {str(dtype)[6:]} {err:.1e} ({rel:.1e})"
+        print(line)
+
+    print("gated_fwd and conv_fwd vs plain across their layouts, at (B, D) with D % 8 != 0 (err of max|ref|):")
+    for seq_len in ROUTE_EDGE_WIDTHS:
+        line = f"  L={seq_len:6d}"
+        for kind, shapes in ROUTE_EDGE_SHAPES.items():
+            kernel, plain = route_calls(kind)
+            for batch, width in shapes:
+                line += f" | {kind} B={batch} D={width} {route_layout(kind, batch, width, seq_len)}"
+                for dtype, tol in dtypes[kind]:
+                    args = route_inputs(kind, batch, width, seq_len, dtype, seed=seq_len + width)
+                    got = kernel(*args)
+                    torch.cuda.synchronize()
+                    _err, rel = within(got, plain(*args), tol, f"{kind} B={batch} D={width} L={seq_len} {dtype}")
+                    line += f" {str(dtype)[6:]} {rel:.1e}"
         print(line)
 
     print("at flagship batch shapes (B = 2^17 // W, D = 256; gated and in_proj bf16, conv f32):")
@@ -1604,7 +1650,8 @@ def phase_route_kernels() -> list[dict]:
                            ("bound_ms", bound)):  # fmt: skip
                 row[key] += v
             by = "bytes" if bytes_ms >= ops_ms else "ops"
-            line += f" | {kind} {ms:.3f} plain {plain_ms:.3f} bound {bound:.3f} ({by})"
+            layout = "" if kind == "mixer_inproj_fwd" else f" [{route_layout(kind, batch, d_model, seq_len)}]"
+            line += f" | {kind}{layout} {ms:.3f} plain {plain_ms:.3f} bound {bound:.3f} ({by}) {ms / bound:.1f}x"
             if kind == "mixer_inproj_fwd":
                 x, w_in, b_in, *mix = args
                 composed = time_ms(lambda: mixer.mixer_fwd_cuda(inproj.projection_composed(x, w_in, b_in), *mix))

@@ -20,6 +20,9 @@
 // once a block from the host's float64-built table; W_H^i is wt[i mod H/4]
 // turned by (-i)^(i div H/4), which is exact.
 //
+// Last, the FFT conv's pair pass over a row held as two such transforms
+// (`spectral_pair`, `half_pairs`), shared by the kernels built on them.
+//
 // The numpy model of this plan is tests/test_torch_port_fft_plan.py.
 
 #pragma once
@@ -110,10 +113,10 @@ __device__ __forceinline__ void butterflies(float2* v) {
 }
 
 template <int R, bool INV, int SPAN>
-__device__ __forceinline__ void dif_stages(float2* v) {
+__device__ __forceinline__ void dif_spans(float2* v) {
   if constexpr (SPAN >= 1) {
     butterflies<R, INV, SPAN, 0>(v);
-    dif_stages<R, INV, SPAN / 2>(v);
+    dif_spans<R, INV, SPAN / 2>(v);
   }
 }
 
@@ -135,7 +138,7 @@ __device__ __forceinline__ void bit_reverse(float2* v) {
 // stays in registers.
 template <int R, bool INV>
 __device__ __forceinline__ void dft(float2* v) {
-  dif_stages<R, INV, R / 2>(v);
+  dif_spans<R, INV, R / 2>(v);
   bit_reverse<R, 0>(v);
 }
 
@@ -212,6 +215,35 @@ __device__ void fft(float2* x, int log2h, int t, bool active, const float2* wt) 
       case 3: pass<3, V, INV>(x, log2h, log2ns, t, active, wt); break;
       default: pass<4, V, INV>(x, log2h, log2ns, t, active, wt); break;
     }
+  }
+}
+
+// The pair pass of the FFT conv for bins (k, M - k) of one row whose
+// spectrum lies in two transforms of H = M/2 at stride hp (bin k at half
+// k & 1, index k / 2): real-FFT split, times khat, real-IFFT merge.
+__device__ __forceinline__ void spectral_pair(float2* row, int hp, int k, int M, const float2* kh, const float2* tw) {
+  const int k2 = (M - k) & (M - 1);
+  const int pa = (k & 1) * hp + pad(k >> 1);
+  const int pb = (k2 & 1) * hp + pad(k2 >> 1);
+  float2 za, zb;
+  mixer_common::pair_pass(row[pa], row[pb], k, M, kh, tw, &za, &zb);
+  row[pa] = za;
+  if (k != 0 && k2 != k) row[pb] = zb;
+}
+
+// The same pass over the half `rank` alone, as a two-CTA cluster holds a row
+// (one half a CTA, in s): bins k = 2j + rank <= M/2, whose partners M - k
+// have k's parity and so lie in the same half. Every thread of the CTA calls it.
+__device__ __forceinline__ void half_pairs(float2* s, int rank, int H, const float2* kh, const float2* tw) {
+  const int M = 2 * H;
+  for (int j = threadIdx.x; 2 * j + rank <= H; j += blockDim.x) {
+    const int k = 2 * j + rank;
+    const int k2 = (M - k) & (M - 1);
+    const int pa = pad(k >> 1), pb = pad(k2 >> 1);
+    float2 za, zb;
+    mixer_common::pair_pass(s[pa], s[pb], k, M, kh, tw, &za, &zb);
+    s[pa] = za;
+    if (k != 0 && k2 != k) s[pb] = zb;
   }
 }
 

@@ -1,10 +1,9 @@
 // Device code shared by the FFT-conv kernels (mixer_fwd.cu, mixer_bwd.cu,
-// mixer_inproj_fwd.cu, fftconv.cuh): complex helpers, the taps of the gates'
-// 3-tap short conv, the mixers' 16-byte chunks of a row, in-place radix-2 FFT
-// stages in shared memory (only fftconv.cuh's kernels still run them; the
-// mixers run fft_radix.cuh's passes), and the split/merge that turn a complex
-// length-M transform of a packed real sequence into its length-2M real
-// spectrum and back.
+// mixer_inproj_fwd.cu, conv_fwd.cu): complex helpers, the taps of the gates'
+// 3-tap short conv, the mixers' 16-byte chunks of a row, and the split/merge
+// that turn a complex length-M transform of a packed real sequence into its
+// length-2M real spectrum and back. The transforms themselves are
+// fft_radix.cuh's.
 //
 // Conventions. N = 2M is the real transform length (a power of two), tw[j] =
 // exp(-2 pi i j / N) for j in [0, M]. A real sequence x of length N is packed as
@@ -36,6 +35,7 @@ __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(
 // taps (3, 3D) float32, tap t multiplies x[n - (2 - t)]; bsh (3D,).
 struct Gate {
   float k0, k1, k2, b;
+  __device__ Gate() : k0(0.f), k1(0.f), k2(1.f), b(0.f) {}  // the identity: g[n] = x[n]
   __device__ Gate(const float* taps, const float* bsh, int D, int ch) {
     const int w3 = 3 * D;
     k0 = taps[ch];
@@ -110,46 +110,6 @@ __device__ __forceinline__ void chunk_twiddles(const float2* tw, int n0, int lim
     const float2 w = m < lim ? __ldg(&tw[2 * m]) : make_float2(0.f, 0.f);
     twm[p] = CONJ ? cconj(w) : w;
   }
-}
-
-__device__ __forceinline__ int brev(int x, int bits) {
-  return bits ? (int)(__brev((unsigned)x) >> (32 - bits)) : 0;
-}
-
-// In-place radix-2 decimation-in-frequency over `size` complex values made of
-// independent length-H transforms (natural order in, bit-reversed out).
-__device__ inline void dif_stages(float2* s, int size, int H, int n, const float2* tw) {
-  for (int span = H >> 1; span >= 1; span >>= 1) {
-    __syncthreads();
-    const int tstride = n / (2 * span);
-    for (int t = threadIdx.x; t < (size >> 1); t += blockDim.x) {
-      const int j = t & (span - 1);
-      const int i = ((t - j) << 1) + j;
-      const float2 a = s[i];
-      const float2 b = s[i + span];
-      s[i] = cadd(a, b);
-      s[i + span] = cmul(csub(a, b), __ldg(&tw[j * tstride]));
-    }
-  }
-  __syncthreads();
-}
-
-// In-place radix-2 decimation-in-time inverse (bit-reversed in, natural out),
-// unnormalized: the 1/N is folded into the filter spectrum.
-__device__ inline void dit_stages(float2* s, int size, int H, int n, const float2* tw) {
-  for (int span = 1; span <= (H >> 1); span <<= 1) {
-    __syncthreads();
-    const int tstride = n / (2 * span);
-    for (int t = threadIdx.x; t < (size >> 1); t += blockDim.x) {
-      const int j = t & (span - 1);
-      const int i = ((t - j) << 1) + j;
-      const float2 a = s[i];
-      const float2 b = cmul(s[i + span], cconj(__ldg(&tw[j * tstride])));
-      s[i] = cadd(a, b);
-      s[i + span] = csub(a, b);
-    }
-  }
-  __syncthreads();
 }
 
 // Real-FFT split for the pair (k, M-k), k <= M/2: A = Z[k], B = Z[(M-k) mod M]

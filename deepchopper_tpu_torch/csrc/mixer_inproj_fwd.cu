@@ -89,6 +89,7 @@ using namespace mixer_common;
 using fft_radix::pad;
 using fft_radix::padded;
 using fft_radix::quarter;
+using fft_radix::spectral_pair;
 
 constexpr int kPairLog2h = 14;  // N = 65536: one half fills a CTA's shared memory
 constexpr int kRowsThreads = 256;
@@ -411,19 +412,6 @@ __device__ void project(const Args& a, unsigned char* smem, int b, int c0, int t
     }
   }
   __syncthreads();
-}
-
-// The pair pass for bins (k, M - k) of one row whose spectrum lies in two
-// halves of stride hp (bin k at half k & 1, index k / 2): real-FFT split,
-// times khat, real-IFFT merge.
-__device__ __forceinline__ void spectral_pair(float2* row, int hp, int k, int M, const float2* kh, const float2* tw) {
-  const int k2 = (M - k) & (M - 1);
-  const int pa = (k & 1) * hp + pad(k >> 1);
-  const int pb = (k2 & 1) * hp + pad(k2 >> 1);
-  float2 za, zb;
-  pair_pass(row[pa], row[pb], k, M, kh, tw, &za, &zb);
-  row[pa] = za;
-  if (k != 0 && k2 != k) row[pb] = zb;
 }
 
 // z[m] of a scratch row, zero from ceil(L / 2) on.

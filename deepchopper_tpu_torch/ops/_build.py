@@ -28,7 +28,7 @@ NVCC_FLAGS = (
 )  # fmt: skip
 SOURCES = (
     "mixer_fwd.cu", "mixer_bwd.cu", "scan_fwd.cu", "scan_bwd.cu",
-    "gated_fwd.cu", "conv_fwd.cu", "mixer_inproj_fwd.cu", "setup.cu",
+    "conv_fwd.cu", "mixer_inproj_fwd.cu", "setup.cu",
 )  # fmt: skip
 
 _lock = threading.Lock()

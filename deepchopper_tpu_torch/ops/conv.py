@@ -12,9 +12,10 @@ op behind `models.hyena.causal_conv`, and the ungated special case of
 
 `ConvFn` makes it differentiable and saves only its inputs. On CUDA tensors
 the forward launches the hand-written kernel `csrc/conv_fwd.cu` (which reads
-and writes the channel-last layout in place), or raises; on CPU tensors it
-runs `conv_reference`. The backward is `conv_bwd_reference` on both: the JAX
-backward is XLA code, not a kernel, so it stays plain PyTorch.
+and writes the channel-last layout in place, on the plan of `conv_fwd_plan`),
+or raises; on CPU tensors it runs `conv_reference`. The backward is
+`conv_bwd_reference` on both: the JAX backward is XLA code, not a kernel, so
+it stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -65,14 +66,64 @@ def conv_bwd_reference(v, dy, k, bias):
     return dv.to(v.dtype), dk.to(k.dtype), dbias.to(bias.dtype)
 
 
+# The plan of `csrc/conv_fwd.cu` (its header says why).
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+MAX_CHANNELS = 8  # channels a rows block: 8 float32 of a position fill a 32-byte sector
+ROWS_THREADS = 256  # the rows block G aims at (measured on an H100 against larger tiles)
+PAIR_LOG2N = 16  # N = 65536: a row is a cluster of two CTAs
+PAIR_THREADS = 512
+
+
+def values_per_thread(h: int) -> int:
+    """`fft_radix::values_per_thread`: values a thread holds in a pass."""
+    return h if h < 16 else (32 if h >= 4096 else 16)
+
+
+def padded(h: int) -> int:
+    """`fft_radix::padded`: float2 slots of one padded transform of h values."""
+    return h + (h >> 4)
+
+
+def quarter(h: int) -> int:
+    """`fft_radix::quarter`: float2 slots of the quarter twiddle table."""
+    return max(1, h >> 2)
+
+
+@functools.lru_cache(maxsize=4096)
+def conv_fwd_plan(batch: int, d_model: int, seq_len: int) -> dict:
+    """How `csrc/conv_fwd.cu` runs a (B, L, D) conv: layout ("rows" up to
+    N = 32768, "pair" at 65536), G (channels a block), V (values a thread in
+    a transform pass), CW (channels a thread loads at once), threads and
+    shared bytes a CTA, CTAs a row (2 in the pair), and the grid (CTAs).
+
+    Rows: the block runs its 2G transforms of H = N/4 at once, H / V
+    threads each. G is the power of two that gives ROWS_THREADS threads,
+    but at least 2 and at most MAX_CHANNELS, halved until the 2G padded
+    transforms and the quarter table fit SMEM_LIMIT, and no more than the
+    next power of two >= D. Pair: one channel a cluster of two CTAs, one
+    half of the row each."""
+    n = fft_size(seq_len)
+    log2n = n.bit_length() - 1
+    h = n // 4
+    v = values_per_thread(h)
+    if log2n == PAIR_LOG2N:
+        return {"layout": "pair", "G": 1, "V": 32, "CW": 1, "threads": PAIR_THREADS, "ctas": 2,
+                "smem": (padded(h) + quarter(h)) * 8, "grid": 2 * batch * d_model}  # fmt: skip
+    nt = h // v  # threads of one transform
+    g = min(MAX_CHANNELS, max(2, ROWS_THREADS // (2 * nt)))
+    while g > 1 and (g * 2 * padded(h) + quarter(h)) * 8 > SMEM_LIMIT:
+        g //= 2
+    g = min(g, 1 << (d_model - 1).bit_length())
+    return {"layout": "rows", "G": g, "V": v, "CW": min(g, 4), "threads": 2 * g * nt, "ctas": 1,
+            "smem": (g * 2 * padded(h) + quarter(h)) * 8, "grid": batch * -(-d_model // g)}  # fmt: skip
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_fwd.cu")
     ptr = ctypes.c_void_p
-    lib.conv_fwd.argtypes = [ptr] * 5 + [ctypes.c_int] * 4 + [ptr]
+    lib.conv_fwd.argtypes = [ptr] * 4 + [ctypes.c_int] * 5 + [ptr]
     lib.conv_fwd.restype = ctypes.c_int
-    lib.conv_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
-    lib.conv_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -82,7 +133,8 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def conv_fwd_cuda(v: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/conv_fwd.cu` on the current stream (no synchronise)."""
+    """Launch `csrc/conv_fwd.cu` on the current stream (no synchronise), on
+    the plan of `conv_fwd_plan`."""
     _check(v.is_cuda, "v must be a CUDA tensor")
     _check(v.dtype == torch.float32, f"v must be float32, got {v.dtype}")
     _check(v.dim() == 3, f"v must be (B, L, D), got {tuple(v.shape)}")
@@ -90,24 +142,28 @@ def conv_fwd_cuda(v: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch
     _check(tuple(k.shape) == (seq_len, d_model), f"k shape {tuple(k.shape)}")
     _check(tuple(bias.shape) == (d_model,), f"bias shape {tuple(bias.shape)}")
     _check(seq_len <= MAX_SEQ_LEN, f"L = {seq_len} > {MAX_SEQ_LEN}")
-    dev = v.device
     for name, t in (("k", k), ("bias", bias)):
-        _check(t.device == dev, f"{name} is on {t.device}, v on {dev}")
+        _check(t.device == v.device, f"{name} is on {t.device}, v on {v.device}")
+    y = _conv_fwd_launch(v, k, bias, conv_fwd_plan(batch, d_model, seq_len))
+    launch_counts["conv_fwd"] += 1
+    return y
+
+
+def _conv_fwd_launch(v: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, plan: dict) -> torch.Tensor:
+    """One launch of `csrc/conv_fwd.cu` on checked arguments with the G of
+    `plan` (the kernel refuses a plan it does not take)."""
+    batch, seq_len, d_model = v.shape
     n = fft_size(seq_len)
-    log2n = n.bit_length() - 1
     vc = v.contiguous()
     khat = filter_spectrum(k, bias, n)
-    tw = _twiddles(n, dev)
+    tw = _twiddles(n, v.device)
     y = torch.empty_like(vc)
-    lib = _lib()
-    scratch = torch.empty(max(lib.conv_fwd_scratch_bytes(batch, d_model, log2n), 8), dtype=torch.uint8, device=dev)
     _build.launch(
-        lib.conv_fwd, vc,
-        vc.data_ptr(), khat.data_ptr(), tw.data_ptr(), scratch.data_ptr(), y.data_ptr(),
-        batch, d_model, seq_len, log2n,
+        _lib().conv_fwd, vc,
+        vc.data_ptr(), khat.data_ptr(), tw.data_ptr(), y.data_ptr(),
+        batch, d_model, seq_len, n.bit_length() - 1, plan["G"],
         what=f"conv_fwd at (B={batch}, L={seq_len}, D={d_model})",
     )  # fmt: skip
-    launch_counts["conv_fwd"] += 1
     return y
 
 

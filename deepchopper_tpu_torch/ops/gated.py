@@ -16,7 +16,8 @@ round v * x1 to the input dtype first), in the kernel and in the plain version
 alike.
 
 `GatedFn` makes it differentiable and saves only its inputs. On CUDA tensors
-the forward launches the hand-written kernel `csrc/gated_fwd.cu`, or raises;
+the forward launches the hand-written kernel `gated_fwd` of
+`csrc/mixer_fwd.cu` (the fused mixer's kernels without the short conv), or raises;
 on CPU tensors it runs `gated_reference`. The backward is `gated_bwd_reference`
 on both: the JAX backward is XLA code, not a kernel, so it stays plain PyTorch
 (`torch.fft`, cuFFT on the card).
@@ -85,12 +86,10 @@ def gated_bwd_reference(uc_bm, dy_bm, k_long, bias):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("gated_fwd.cu")
+    lib = _build.load("mixer_fwd.cu")
     ptr = ctypes.c_void_p
-    lib.gated_fwd.argtypes = [ptr] * 5 + [ctypes.c_int] * 5 + [ptr]
+    lib.gated_fwd.argtypes = [ptr] * 4 + [ctypes.c_int] * 5 + [ptr]
     lib.gated_fwd.restype = ctypes.c_int
-    lib.gated_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
-    lib.gated_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -100,7 +99,8 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def gated_fwd_cuda(uc_bm: torch.Tensor, k_long: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/gated_fwd.cu` on the current stream (no synchronise)."""
+    """Launch `gated_fwd` of `csrc/mixer_fwd.cu` on the current stream (no
+    synchronise)."""
     _check(uc_bm.is_cuda, "uc_bm must be a CUDA tensor")
     _check(uc_bm.dtype in _DTYPE_CODES, f"unsupported dtype {uc_bm.dtype}")
     _check(uc_bm.dim() == 3, f"uc_bm must be (B, 3D, L), got {tuple(uc_bm.shape)}")
@@ -119,11 +119,9 @@ def gated_fwd_cuda(uc_bm: torch.Tensor, k_long: torch.Tensor, bias: torch.Tensor
     khat = filter_spectrum(k_long, bias, n)
     tw = _twiddles(n, dev)
     out = torch.empty((batch, d_model, seq_len), dtype=uc.dtype, device=dev)
-    lib = _lib()
-    scratch = torch.empty(max(lib.gated_fwd_scratch_bytes(batch, d_model, log2n), 8), dtype=torch.uint8, device=dev)
     _build.launch(
-        lib.gated_fwd, uc,
-        uc.data_ptr(), khat.data_ptr(), tw.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        _lib().gated_fwd, uc,
+        uc.data_ptr(), khat.data_ptr(), tw.data_ptr(), out.data_ptr(),
         batch, d_model, seq_len, log2n, _DTYPE_CODES[uc.dtype],
         what=f"gated_fwd at (B={batch}, D={d_model}, L={seq_len})",
     )  # fmt: skip

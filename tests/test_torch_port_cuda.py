@@ -384,20 +384,30 @@ def _within(got, want, tol):
     assert err <= tol * want.float().abs().max().item(), err
 
 
-# gated_fwd and conv_fwd: 256..16384 run the shared-memory branch, 24576 and
-# 32768 the global-scratch branch; mixer_inproj_fwd: 256..16384 one block a
-# channel group, 24576 and 32768 a cluster of two CTAs. 300 and 1000 are
-# off-ladder widths (odd half-lengths; 300 in bfloat16 takes the scalar tile
-# loads).
+# gated_fwd (mixer_fwd.cu's kernels without the short conv): 256..16384 the
+# rows kernel (several batch rows a block up to L = 2048), 24576 and 32768 the
+# two-CTA cluster; conv_fwd (ops/conv.conv_fwd_plan): rows blocks of G = 8
+# channels up to L = 512, 4 at 513..1024, 2 at 1025..8192, 1 at
+# 8193..16384, the two-CTA cluster at 24576 and 32768; mixer_inproj_fwd:
+# 256..16384 one block a channel group, 24576 and 32768 a cluster of two CTAs.
+# 300, 1000, 513, 1025, 2049 and 8193 are off-ladder widths (odd
+# half-lengths; in bfloat16 not whole 16-byte chunks: the scalar loads).
 ROUTE_WIDTHS = [256, 300, 1000, 1280, 16384, 24576, 32768]
+BOUNDARY_WIDTHS = [512, 513, 1024, 1025, 2048, 2049, 4096, 8192, 8193]
+# (batch, D): D % 8 != 0 is the unfused route's real trigger; for the conv,
+# D = 12 and 20 leave a channel group part idle at G = 8, and D = 6 takes no
+# whole channel vectors; odd batches leave a gated block's rows part empty.
+GATED_SHAPES = [(2, 8), (3, 12), (1, 20)]
+CONV_SHAPES = [(2, 8), (3, 12), (1, 20), (3, 6)]
 
 
-@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS)
+@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS + BOUNDARY_WIDTHS)
+@pytest.mark.parametrize("batch,d_model", GATED_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-def test_gated_kernel_matches_plain(cuda, seq_len, dtype, tol):
+def test_gated_kernel_matches_plain(cuda, seq_len, batch, d_model, dtype, tol):
     from deepchopper_tpu_torch.ops import gated
 
-    args = _gated_inputs(2, 8, seq_len, dtype, cuda, seed=seq_len)
+    args = _gated_inputs(batch, d_model, seq_len, dtype, cuda, seed=seq_len + d_model)
     gated.reset_launch_counts()
     got = gated.gated_fwd_cuda(*args)
     torch.cuda.synchronize()
@@ -405,17 +415,64 @@ def test_gated_kernel_matches_plain(cuda, seq_len, dtype, tol):
     _within(got, gated.gated_reference(*args), tol)
 
 
-@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS)
-def test_conv_kernel_matches_plain(cuda, seq_len):
+@pytest.mark.parametrize("seq_len", [256, 1000, 2049, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_rows_are_independent_of_their_batch(cuda, seq_len, dtype):
+    """Each row of a B = 5 call is bitwise the row run alone, whichever rows
+    share its block (the rows layout's promise), and two calls are equal."""
+    from deepchopper_tpu_torch.ops import gated
+
+    uc, k_long, bias = _gated_inputs(5, 12, seq_len, dtype, cuda, seed=seq_len + 3)
+    whole = gated.gated_fwd_cuda(uc, k_long, bias)
+    assert torch.equal(whole, gated.gated_fwd_cuda(uc, k_long, bias))
+    for b in range(5):
+        assert torch.equal(whole[b : b + 1], gated.gated_fwd_cuda(uc[b : b + 1].contiguous(), k_long, bias))
+
+
+@pytest.mark.parametrize("seq_len", ROUTE_WIDTHS + BOUNDARY_WIDTHS)
+@pytest.mark.parametrize("batch,d_model", CONV_SHAPES)
+def test_conv_kernel_matches_plain(cuda, seq_len, batch, d_model):
     from deepchopper_tpu_torch.ops import conv
 
-    _proj, _ks, _bs, k_long, bias = _inputs(1, 8, seq_len, torch.float32, cuda, seed=seq_len)
-    v = torch.from_numpy(np.random.default_rng(seq_len).standard_normal((3, seq_len, 8)).astype(np.float32)).to(cuda)
+    _proj, _ks, _bs, k_long, bias = _inputs(1, d_model, seq_len, torch.float32, cuda, seed=seq_len)
+    rng = np.random.default_rng(seq_len + d_model)
+    v = torch.from_numpy(rng.standard_normal((batch, seq_len, d_model)).astype(np.float32)).to(cuda)
     conv.reset_launch_counts()
     got = conv.conv_fwd_cuda(v, k_long, bias)
     torch.cuda.synchronize()
     assert conv.launch_counts["conv_fwd"] == 1
     _within(got, conv.conv_reference(v, k_long, bias), 1e-4)
+
+
+def test_conv_kernel_takes_rows_off_vector_alignment(cuda):
+    """v starting one float past a 16-byte boundary takes the scalar loads."""
+    from deepchopper_tpu_torch.ops import conv
+
+    _proj, _ks, _bs, k_long, bias = _inputs(1, 8, 1000, torch.float32, cuda, seed=4)
+    v = torch.randn(2 * 1000 * 8 + 1, device=cuda)[1:].view(2, 1000, 8)
+    _within(conv.conv_fwd_cuda(v, k_long, bias), conv.conv_reference(v, k_long, bias), 1e-4)
+
+
+@pytest.mark.parametrize("seq_len", [1000, 32768])
+def test_route_wrappers_allocate_no_scratch(cuda, seq_len):
+    """Past the first call (filter spectrum kept, twiddles cached), a call of
+    either wrapper allocates its output and nothing more: no global scratch
+    at any width (the first design parked a B D N/4 float2 row at N = 65536,
+    as large as the output)."""
+    from deepchopper_tpu_torch.ops import conv, gated
+
+    uc, k_long, bias = _gated_inputs(16, 8, seq_len, torch.float32, cuda, seed=1)
+    k_long, bias = mixer.fixed_filter(k_long, bias)
+    v = torch.randn(16, seq_len, 8, device=cuda)
+    for call in (lambda: gated.gated_fwd_cuda(uc, k_long, bias), lambda: conv.conv_fwd_cuda(v, k_long, bias)):
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base <= out.numel() * out.element_size() + 4096
+        del out
 
 
 @pytest.mark.parametrize("seq_len", ROUTE_WIDTHS)
