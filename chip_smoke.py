@@ -1157,21 +1157,11 @@ def train_parity(model_name: str, swap, counts: Counts, kernel_launches: dict, r
     function, swapped in by `swap`; "plain" is the yardstick). Every
     parameter's gradient within `tol` of that leaf's max|grad| of the plain
     run; the run named `control` must fail that rule."""
-    import dataclasses
-
     import torch
 
-    from deepchopper_tpu_torch.models.registry import DeepChopper
     from deepchopper_tpu_torch.train.loss import continuous_interval_loss
 
-    base = DeepChopper.new(model_name, seed=0, device="cuda")
-    model = type(base)(
-        dataclasses.replace(base.backbone_config, compute_dtype="float32"),
-        dataclasses.replace(base.head_config, compute_dtype="float32"),
-    ).cuda()
-    model.load_state_dict(base.state_dict())
-    model.train()
-    del base
+    model = f32_model(model_name)
     runs = {"kernel": None, **runs}
     worst = {name: 0.0 for name in runs if name != "plain"}
     for batch_shape, seed in shapes:
@@ -1257,8 +1247,10 @@ def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: t
     train_rows = ratio_split(N_READS, 0.8, 0.1, seed=0).train
     lengths[train_rows[0]], lengths[train_rows[1]] = 20000, 30000
     fq = synth_labelled_fastq(work / "reads.fq", lengths, seed=0)
+    # One rank: the launches are counted in this process (None would start a
+    # rank a card on a machine with several).
     argv = ["train", f"data.train_data_path={fq}", f"model.name={model}", "seed=0", "trainer.max_epochs=1",
-            f"output_dir={work / 'runs'}", *extra, "--device", "cuda"]  # fmt: skip
+            "trainer.n_devices=1", f"output_dir={work / 'runs'}", *extra, "--device", "cuda"]  # fmt: skip
     cfg = cli.train_config(cli.build_parser().parse_args(argv))
     dm = DataModule(**dataclasses.asdict(cfg.data))
     train_batches = list(dm.train_batches(0))
@@ -2091,6 +2083,85 @@ def recorded_engines():
         engine_module.PredictEngine = cls
 
 
+@contextlib.contextmanager
+def split_times():
+    """Yield a dict of wall seconds, summed by step, of the `predict
+    --fused-chop` run meanwhile (host clock; the functions it calls are
+    wrapped, and put back after): "model" build, "engine" set-up and
+    "runtime_setup", the engine's "dispatch" (lazy graph captures included)
+    and "collect" (the wait for the device), "predict_file" whole with its
+    "parse" (FASTQ parse and encode, on the prefetch thread, overlapped) and
+    "shard_writes", each "barrier <name>", "load_predicts", "chop_part" (the
+    rank's chop into its part, which parses the whole FASTQ) inside
+    "shard_parallel_chop" (rank 0's merge is the rest), or the one-rank
+    "fused_runner"."""
+    from deepchopper_tpu_torch import parallel
+    from deepchopper_tpu_torch.chop import pipeline
+    from deepchopper_tpu_torch.infer import engine, fused
+    from deepchopper_tpu_torch.io import predicts
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    split: dict[str, float] = {}
+
+    def add(key: str, t0: float) -> None:
+        split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+
+    def timer(key, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                add(key if isinstance(key, str) else key(*args), t0)
+
+        return wrapped
+
+    def parsed(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            it = iter(fn(*args, **kwargs))
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                add("parse", t0)
+                if item is None:
+                    return
+                yield item
+
+        return wrapped
+
+    def owner(name: str) -> type:  # the class that defines `name` (a subclass may be recording engines)
+        return next(c for c in engine.PredictEngine.__mro__ if name in vars(c))
+
+    wraps = [
+        (DeepChopper, "from_pretrained", staticmethod(timer("model", DeepChopper.from_pretrained))),
+        *((owner(name), name, timer(key, vars(owner(name))[name])) for name, key in (
+            ("__init__", "engine"), ("runtime_setup", "runtime_setup"), ("_dispatch", "dispatch"),
+            ("_collect", "collect"), ("predict_file", "predict_file"))),
+        (engine, "iter_batches", parsed(engine.iter_batches)),
+        (engine, "write_prediction_shard", timer("shard_writes", engine.write_prediction_shard)),
+        (parallel, "barrier", timer(lambda name: f"barrier {name}", parallel.barrier)),
+        (predicts, "load_predicts_from_batch_pts", timer("load_predicts", predicts.load_predicts_from_batch_pts)),
+        (pipeline, "_write_chopped", timer("chop_part", pipeline._write_chopped)),
+        (pipeline, "multihost_stream_chop", timer("shard_parallel_chop", pipeline.multihost_stream_chop)),
+        (fused, "fused_predict_chop", timer("fused_runner", fused.fused_predict_chop)),
+    ]  # fmt: skip
+    saved = [(owner, name, vars(owner)[name]) for owner, name, _ in wraps]
+    for owner, name, fn in wraps:
+        setattr(owner, name, fn)
+    try:
+        yield split
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def print_split(who: str, wall: float, split: dict[str, float]) -> None:
+    steps = ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+    print(f"  split, {who}: wall {wall:.3f} s; {steps}")
+
+
 def print_fused_pass(card: str, what: str, stats) -> None:
     print(
         f"fused throughput, {what}, on {card}: {stats.total_fq_count / stats.elapsed_s:.1f} reads/s, "
@@ -2201,9 +2272,289 @@ def phase_fused(card: str, fq: Path, counts: Counts) -> int:
     return launches["setup"]  # the CLI pass's: its engine launched the setup kernel once
 
 
+RANKS = 2
+RANK_BATCH = (64, 1024)  # the DDP step's global rows and width
+RANK_STEP_LR = 1e-4
+RANK_SHORT = 300  # valid positions of rank 1's rows in the DDP step's batch
+
+
+def rank_layout() -> tuple[str, str]:
+    """(backend, where the ranks run): NCCL with a card a rank where there are
+    enough cards, else gloo with every rank on cuda:0."""
+    import torch
+
+    if torch.cuda.device_count() >= RANKS:
+        return "nccl", "one card a rank"
+    return "gloo", "all ranks on cuda:0, sharing it: this checks the plumbing and measures no scaling"
+
+
+def rank_training_batch() -> dict:
+    """`training_batch` at RANK_BATCH, rank 1's rows (the second half) cut to
+    RANK_SHORT valid positions: the two row blocks hold unequal valid counts."""
+    batch = {k: v.cpu().numpy() for k, v in training_batch(*RANK_BATCH, seed=7).items()}
+    half = RANK_BATCH[0] // RANKS
+    batch["input_ids"][half:, RANK_SHORT:] = 4
+    batch["labels"][half:, RANK_SHORT:] = -100
+    batch["input_quals"][half:, RANK_SHORT:] = 0.0
+    return batch
+
+
+def f32_model(model_name: str):
+    """`model_name`'s random-init weights (seed 0) in a float32 copy, in train
+    mode, on the current card."""
+    import dataclasses
+
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    base = DeepChopper.new(model_name, seed=0, device="cuda")
+    model = type(base)(
+        dataclasses.replace(base.backbone_config, compute_dtype="float32"),
+        dataclasses.replace(base.head_config, compute_dtype="float32"),
+    ).cuda()
+    model.load_state_dict(base.state_dict())
+    return model.train()
+
+
+def ranks_worker(work: Path) -> int:
+    """One rank of `phase_ranks` (ranks from DC_COORDINATOR, DC_NUM_PROCESSES,
+    DC_PROCESS_ID and DC_BACKEND): (a) `predict --fused-chop` through the CLI
+    into `work / "fused"`, twice (the second pass in a warm process, with a
+    new engine), (b) `predict` through the CLI into per-rank shards
+    under `work / "two_shards"`, (c) one f32 DDP train step of the flagship on
+    its rows of `rank_training_batch`, with gradients summed and, as the
+    control, DDP's default average of per-rank means. Writes
+    `work / "rank{r}.json"`; rank 0 also the gradients of (c)."""
+    import os
+
+    import torch
+
+    from deepchopper_tpu_torch import cli, parallel
+    from deepchopper_tpu_torch.models.registry import build_model
+    from deepchopper_tpu_torch.ops import mixer
+    from deepchopper_tpu_torch.train.loop import data_parallel, rank_block
+    from deepchopper_tpu_torch.train.loss import loss_counts
+    from deepchopper_tpu_torch.train.step import make_optimizer, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize_distributed()
+    rank, world = parallel.process_shard_info()
+    device = parallel.local_device()
+    fq = work / "reads.fq"
+    n_layer = build_model(HYENA).backbone_config.n_layer
+    report: dict = {"rank": rank, "world": world, "device": str(device)}
+    fused = ["--fused-chop", "-o", str(work / "fused_shards")]
+    for name, argv in (("fused_first", fused), ("fused", fused), ("two", ["-o", str(work / "two_shards")])):
+        os.chdir(work / name.removesuffix("_first"))
+        parallel.barrier(name)
+        mixer.reset_launch_counts()
+        t0 = time.perf_counter()
+        with split_times() as split, recorded_engines() as made:
+            rc = cli.main(["predict", str(fq), "--model", HYENA, "--random-init", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = made[0].stats
+        report[name] = {"rc": rc, "wall_s": wall, "launches": dict(mixer.launch_counts), "reads": stats.reads,
+                        "runs": stats.dispatches + stats.warm_runs, "n_layer": n_layer,
+                        "captures": stats.captures, "split": split}  # fmt: skip
+
+    batch = rank_training_batch()
+    counts = loss_counts(batch["labels"])
+    fills = {"input_ids": 4, "input_quals": 0.0, "labels": -100}
+    block = {k: torch.from_numpy(rank_block(batch[k], fill, rank, world)).to(device) for k, fill in fills.items()}
+    report["valid"] = int((block["labels"] != -100).sum())
+    for name, summed in (("ddp", True), ("control", False)):
+        model = f32_model(HYENA)
+        if summed:
+            step_model = data_parallel(model, device)
+        else:  # DDP's default: each rank's own mean, gradients averaged
+            step_model = torch.nn.parallel.DistributedDataParallel(model, device_ids=[device])
+        mixer.reset_launch_counts()
+        aux = train_step(step_model, make_optimizer(model.parameters(), RANK_STEP_LR), block, 0.0, None,
+                         counts if summed else None)  # fmt: skip
+        torch.cuda.synchronize()
+        launches = dict(mixer.launch_counts)
+        loss = aux["loss"] if summed else parallel.all_reduce_sum(aux["loss"].clone()) / world
+        report[name] = {"loss": float(loss), "launches": launches}
+        if rank == 0:
+            torch.save({k: p.grad.detach().cpu() for k, p in model.named_parameters()}, work / f"{name}_grads.pt")
+        del step_model, model
+    (work / f"rank{rank}.json").write_text(json.dumps(report))
+    parallel.barrier("done")
+    parallel.shutdown()
+    return 0
+
+
+def _records(path: Path) -> list[bytes]:
+    lines = _gunzip(path).splitlines()
+    return sorted(b"\n".join(lines[i : i + 4]) for i in range(0, len(lines), 4))
+
+
+def phase_ranks(card: str, fq: Path) -> None:
+    """Data-parallel ranks on the flagship at full width, over the reads of
+    `fq`: RANKS worker processes of this script (`--ranks-worker`, ranks
+    from the DC_* variables; `rank_layout` picks the backend) run
+    `ranks_worker`. Then, against the one-rank runs of `phase_fused` on the
+    same weights and reads: (a) the merged `predict --fused-chop` output has
+    the one-rank fused output's name and record multiset, each rank launched
+    mixer_fwd once a layer per dispatch (replays counted), and a merge
+    without rank 1's part fails that rule; (b) `chop` over the ranks'
+    `predict` shards is byte-identical to the one-rank `predict` + `chop`;
+    (c) the DDP step's loss is within 1e-5 relative of the one-rank step's
+    on the same (64, 1024) batch and every gradient leaf within
+    HYENA_GRAD_TOL of its max, mixer_fwd and mixer_bwd launched on each
+    rank, and DDP's default average of per-rank means fails that rule;
+    (d) where there are RANKS cards or more, `train trainer.n_devices=2`
+    through the CLI for one epoch. Prints reads/s of one rank and of RANKS
+    ranks (each the wall of `predict --fused-chop` through the CLI, model
+    build, engine and lazy captures included; the ranks' first pass in fresh
+    processes, their second in warm ones, like the one rank's), and each
+    pass's wall on each rank split by step (`split_times`)."""
+    import csv
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.chop import ChopOptions, multihost_stream_chop
+    from deepchopper_tpu_torch.io.predicts import load_predicts_from_batch_pts
+    from deepchopper_tpu_torch.train.step import make_optimizer, train_step
+
+    t_phase = time.perf_counter()
+    backend, where = rank_layout()
+    work = fq.parent / "ranks"
+    for name in ("one", "fused", "two"):
+        (work / name).mkdir(parents=True)
+    shutil.copy(fq, work / "reads.fq")
+
+    # The one-rank fused pass through the CLI, timed as the ranks time theirs.
+    with contextlib.chdir(work / "one"), split_times() as one_split:
+        t0 = time.perf_counter()
+        if cli.main(["predict", str(work / "reads.fq"), "--model", HYENA, "--random-init", "--fused-chop"]) != 0:
+            raise SmokeFailure("ranks: the one-rank fused pass exited non-zero")
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "DC_COORDINATOR": f"127.0.0.1:{port}", "DC_NUM_PROCESSES": str(RANKS), "DC_BACKEND": backend}
+    procs = []
+    for r in range(RANKS):
+        log = open(work / f"rank{r}.log", "w")  # noqa: SIM115 - closed below
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ranks-worker", str(work)],
+            env={**env, "DC_PROCESS_ID": str(r), "LOCAL_RANK": str(r if backend == "nccl" else 0)},
+            stdout=log, stderr=subprocess.STDOUT), log))  # fmt: skip
+    try:
+        for proc, _log in procs:
+            proc.wait(timeout=600)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for r, (proc, _log) in enumerate(procs):
+        if proc.returncode != 0:
+            tail = (work / f"rank{r}.log").read_text()[-3000:]
+            raise SmokeFailure(f"ranks: rank {r} exited {proc.returncode}:\n{tail}")
+    reports = [json.loads((work / f"rank{r}.json").read_text()) for r in range(RANKS)]
+    print(f"ranks: {RANKS} ranks, backend {backend}, {where}; devices {[rep['device'] for rep in reports]}")
+
+    # (a) predict --fused-chop over the ranks.
+    one = _chopped(work / "one")
+    merged = _chopped(work / "fused")
+    for rep, part in ((rep, part) for rep in reports for part in ("fused_first", "fused", "two")):
+        got = rep[part]
+        want = {"mixer_fwd": got["n_layer"] * got["runs"], "mixer_bwd": 0}
+        if got["rc"] != 0 or got["launches"] != want or not got["runs"]:
+            raise SmokeFailure(f"ranks ({part}), rank {rep['rank']}: rc {got['rc']}, launches {got['launches']} != {want}")
+    for part in ("fused", "two"):
+        if sum(rep[part]["reads"] for rep in reports) != N_READS:
+            raise SmokeFailure(f"ranks ({part}): the ranks predicted {[rep[part]['reads'] for rep in reports]} reads")
+    if merged.name != one.name or _records(merged) != _records(one):
+        raise SmokeFailure(f"ranks (a): {merged.name} vs {one.name}: record multisets equal: "
+                           f"{_records(merged) == _records(one)}")  # fmt: skip
+    own = load_predicts_from_batch_pts(work / "fused_shards" / "0", pattern="0_*")
+    with contextlib.chdir(work):
+        control = multihost_stream_chop(own, work / "reads.fq", ChopOptions(output_prefix="control"), rank=0, nprocs=1)
+    if _records(Path(work / control.output_file)) == _records(one):
+        raise SmokeFailure("ranks (a): its control (rank 1's part withheld) passes it")
+    print(f"  (a) predict --fused-chop: {merged.name}, the one-rank record multiset; launches per rank "
+          f"{[rep['fused']['launches'] for rep in reports]} = mixer_fwd {reports[0]['fused']['n_layer']} layers x "
+          f"{[rep['fused']['runs'] for rep in reports]} dispatches and warm runs; control (rank 1's part withheld) "
+          f"differs")  # fmt: skip
+
+    # (b) predict on the ranks, then chop.
+    with contextlib.chdir(work / "two"):
+        if cli.main(["chop", str(work / "two_shards" / "0"), str(work / "reads.fq")]) != 0:
+            raise SmokeFailure("ranks (b): chop over the ranks' shards exited non-zero")
+    two, ref = _chopped(work / "two"), fq.parent / "fused" / "npz" / one.name
+    if any(rep["two"]["rc"] != 0 for rep in reports) or two.name != ref.name or _gunzip(two) != _gunzip(ref):
+        raise SmokeFailure(f"ranks (b): {two.name} vs {ref.name}, bytes equal: {_gunzip(two) == _gunzip(ref)}")
+    print(f"  (b) predict on {RANKS} ranks, then chop: {two.name}, byte-identical to the one-rank predict + chop")
+
+    # (c) the DDP train step against the one-rank step on the same batch.
+    batch = {k: torch.from_numpy(v).cuda() for k, v in rank_training_batch().items()}
+    model = f32_model(HYENA)
+    aux = train_step(model, make_optimizer(model.parameters(), RANK_STEP_LR), batch)
+    torch.cuda.synchronize()
+    want_loss = float(aux["loss"])
+    want = {k: p.grad.detach() for k, p in model.named_parameters()}
+    verdicts = {}
+    for name in ("ddp", "control"):
+        got = torch.load(work / f"{name}_grads.pt")
+        rel = {k: float((got[k].cuda() - g).abs().max() / g.abs().max()) for k, g in want.items() if g.abs().max() > 0}
+        leaf = max(rel, key=rel.get)
+        loss_err = abs(reports[0][name]["loss"] - want_loss) / abs(want_loss)
+        verdicts[name] = loss_err <= 1e-5 and rel[leaf] <= HYENA_GRAD_TOL
+        print(f"  (c) f32 train step {RANK_BATCH}, {name} on {RANKS} ranks vs one rank: loss "
+              f"{reports[0][name]['loss']:.7f} vs {want_loss:.7f} ({loss_err:.3e} relative, limit 1e-5); worst "
+              f"gradient leaf {leaf} at {rel[leaf]:.3e} of its max|grad| (limit {HYENA_GRAD_TOL})")  # fmt: skip
+    launched = [rep["ddp"]["launches"] for rep in reports]
+    n_layer = reports[0]["fused"]["n_layer"]
+    if not verdicts["ddp"] or any(x != {"mixer_fwd": n_layer, "mixer_bwd": n_layer} for x in launched):
+        raise SmokeFailure(f"ranks (c): the DDP step fails the one-rank rule, or launched {launched}")
+    if verdicts["control"]:
+        raise SmokeFailure("ranks (c): its control (DDP's average of per-rank means) passes it")
+    print(f"  (c) valid labels per rank {[rep['valid'] for rep in reports]}; launches per rank {launched}; control "
+          f"(DDP's average of per-rank means) fails")  # fmt: skip
+
+    # (d) train through the CLI over the ranks it spawns.
+    if torch.cuda.device_count() >= RANKS:
+        from deepchopper_tpu_torch.data.synth import read_lengths, synth_labelled_fastq
+
+        labelled = synth_labelled_fastq(work / "train.fq", np.clip(read_lengths(100, seed=1), 200, 4000), seed=1)
+        out = work / "train_runs"
+        rc = cli.main(["train", f"data.train_data_path={labelled}", f"model.name={HYENA}", "seed=0",
+                       "trainer.max_epochs=1", f"trainer.n_devices={RANKS}", f"output_dir={out}", "--device", "cuda"])  # fmt: skip
+        rows = list(csv.DictReader(open(out / "train" / "metrics.csv")))
+        if rc != 0 or len(rows) != 1 or not math.isfinite(float(rows[0]["val/loss"])):
+            raise SmokeFailure(f"ranks (d): train over {RANKS} ranks exited {rc}, metrics {rows}")
+        print(f"  (d) train trainer.n_devices={RANKS}: one epoch, val/loss {float(rows[0]['val/loss']):.4f}")
+    else:
+        print(f"  (d) train trainer.n_devices={RANKS}: skipped, {torch.cuda.device_count()} card(s) visible and "
+              f"the CLI places a rank a card")  # fmt: skip
+
+    print_split("1 rank, a new engine in this warm process", one_wall, one_split)
+    for part, what in (("fused_first", "a fresh process"), ("fused", "a new engine in a warm process")):
+        for rep in reports:
+            print_split(f"rank {rep['rank']} of {RANKS}, {what}", rep[part]["wall_s"], rep[part]["split"])
+    first, second = (max(rep[part]["wall_s"] for rep in reports) for part in ("fused_first", "fused"))
+    print(f"ranks throughput on {card}, predict --fused-chop through the CLI: 1 rank {N_READS / one_wall:.1f} "
+          f"reads/s ({one_wall:.3f} s, a new engine in this warm process); {RANKS} ranks {N_READS / second:.1f} "
+          f"reads/s ({second:.3f} s, the slower rank, each a new engine in a warm process), first pass in fresh "
+          f"processes {N_READS / first:.1f} reads/s ({first:.3f} s); backend {backend}, {where}; phase_ranks "
+          f"{time.perf_counter() - t_phase:.1f} s")  # fmt: skip
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="Also profile predict and the train step (device time by kernel)")
+    parser.add_argument("--ranks-worker", type=Path, default=None, help=argparse.SUPPRESS)
     opts = parser.parse_args()
 
     import torch
@@ -2215,6 +2566,8 @@ def main() -> int:
         print(f"chip_smoke: {REPO} is not a checkout of the repository (no deepchopper_tpu_torch)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if opts.ranks_worker is not None:
+        return ranks_worker(opts.ranks_worker)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2237,6 +2590,7 @@ def main() -> int:
         timed(phase_predict, card, HYENA, fq, Counts(mixer), {"mixer_fwd": 1})
         timed(check_hyena_against_plain, fq, work / HYENA / "out" / "0")
         setup_row["launches"] = timed(phase_fused, card, fq, Counts(mixer, setup))
+        timed(phase_ranks, card, fq)
         with route_env(UNFUSED):
             timed(phase_predict, card, HYENA, fq, Counts(mixer, gated), {"gated_fwd": 1, "mixer_fwd": 0}, "-unfused")
             timed(check_unfused_against_plain, fq, work / f"{HYENA}-unfused" / "out" / "0")

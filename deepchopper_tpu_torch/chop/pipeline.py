@@ -6,12 +6,14 @@ renamed at the end to `<stem>.<N>pd.<M>record.chop.fq.gz` (N predictions
 loaded, M records written). Without an `output_prefix` the output lands in
 the current directory. Per chunk, smoothing is batched: the chunk's reads are
 padded into one (B, L) matrix and voted in one pass
-(`ops.labels.majority_voting_batch`). The JAX package's
-`multihost_stream_chop` is not ported yet.
+(`ops.labels.majority_voting_batch`). Over several ranks,
+`multihost_stream_chop` chops each rank's reads in parallel and merges the
+parts on rank 0.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import resource
@@ -22,7 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import default, native
-from ..io.bgzf import open_bgzf_writer
+from ..io.bgzf import BGZF_EOF, open_bgzf_writer
 from ..io.chop import ChopType, FastqRecord, split_records_by_intervals, split_records_by_remove_intervals
 from ..io.fastq import iter_fastq_chunks
 from ..io.predicts import Predict, load_predicts_from_batch_pts
@@ -169,6 +171,101 @@ def predict_cli(
     return run_chop(list(predicts), fq, opts)
 
 
+def _write_chopped(writer, all_predicts: dict[str, Predict], fq_path: Path, opts: ChopOptions) -> tuple[int, int]:
+    """Stream `fq_path` in chunks, chop each and write its records; returns
+    (reads read, records written)."""
+    fq_count = output_count = 0
+    for chunk in iter_fastq_chunks(fq_path, opts.chunk_size):
+        fq_count += len(chunk)
+        results = process_chunk(chunk, all_predicts, opts)
+        for rec in results:
+            writer.write(rec.to_bytes())
+        output_count += len(results)
+    return fq_count, output_count
+
+
+def _part_paths(out_dir: Path, rank: int) -> tuple[Path, Path]:
+    """A rank's raw BGZF part and its JSON sidecar of counts."""
+    return out_dir / f".dc_chop_part_{rank}.fq.gz", out_dir / f".dc_chop_part_{rank}.json"
+
+
+def multihost_stream_chop(
+    all_predicts: dict[str, Predict],
+    fq_path: str | Path,
+    opts: ChopOptions | None = None,
+    rank: int = 0,
+    nprocs: int = 1,
+    barrier=None,
+) -> ChopStats | None:
+    """Shard-parallel chop: every rank chops the reads it predicted.
+
+    Each rank streams the whole FASTQ, and `process_chunk` drops the reads
+    it holds no prediction for, so another rank's reads cost only the parse.
+    Rank r writes a raw BGZF part (no EOF block) and a sidecar of its counts
+    beside the output (the prefix's directory, else the input's, which every
+    rank reads). After `barrier(name)`, rank 0 concatenates the parts in rank
+    order, appends the one EOF block and renames the result to
+    `output_name`'s `<stem>.<N>pd.<M>record.chop.fq.gz`. A missing sidecar
+    (a rank that died before the barrier) raises, and every part and sidecar
+    is removed either way.
+
+    Records are grouped by rank (rank 0's reads 0, n, 2n, ..., then rank
+    1's), not in FASTQ order: the record multiset equals a one-rank run's,
+    the bytes only with nprocs=1. Returns the merged ChopStats on rank 0,
+    None on the others."""
+    opts = opts or ChopOptions()
+    fq_path = Path(fq_path)
+    start = time.monotonic()
+    out_dir = Path(opts.output_prefix).parent if opts.output_prefix is not None else fq_path.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    part_path, sidecar = _part_paths(out_dir, rank)
+    try:
+        with open_bgzf_writer(part_path, threads=opts.threads, level=opts.compression_level, write_eof=False) as writer:
+            fq_count, output_count = _write_chopped(writer, all_predicts, fq_path, opts)
+        sidecar.write_text(json.dumps({"fq_count": fq_count, "output_count": output_count,
+                                       "predicts_loaded": len(all_predicts)}))  # fmt: skip
+    except BaseException:
+        part_path.unlink(missing_ok=True)
+        sidecar.unlink(missing_ok=True)
+        raise
+
+    if barrier is not None:
+        barrier("deepchopper_chop_parts_done")
+    if rank != 0:
+        return None
+
+    stats = ChopStats(total_fq_count=fq_count)
+    temp_output = temp_output_path(opts)
+    try:
+        # Every sidecar is read inside the cleanup's scope: a missing one
+        # must not leave the other ranks' parts behind for a retry to merge.
+        for r in range(nprocs):
+            sc = _part_paths(out_dir, r)[1]
+            if not sc.exists():
+                raise FileNotFoundError(f"missing chop part sidecar for rank {r}: {sc}")
+            counts = json.loads(sc.read_text())
+            stats.total_output_count += counts["output_count"]
+            stats.predicts_loaded += counts["predicts_loaded"]
+        with open(temp_output, "wb") as out:
+            for r in range(nprocs):
+                with open(_part_paths(out_dir, r)[0], "rb") as fh:
+                    while buf := fh.read(4 << 20):
+                        out.write(buf)
+            out.write(BGZF_EOF)
+        stats.output_file = output_name(fq_path, opts, stats)
+        os.replace(temp_output, stats.output_file)
+    except BaseException:
+        temp_output.unlink(missing_ok=True)
+        raise
+    finally:
+        for r in range(nprocs):
+            for path in _part_paths(out_dir, r):
+                path.unlink(missing_ok=True)
+    stats.elapsed_s = time.monotonic() - start
+    stats.peak_rss_bytes = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return stats
+
+
 def stream_chop_with_predicts(
     all_predicts: dict[str, Predict], fq_path: str | Path, opts: ChopOptions | None = None
 ) -> ChopStats:
@@ -180,12 +277,7 @@ def stream_chop_with_predicts(
     temp_output = temp_output_path(opts)
     try:
         with open_bgzf_writer(temp_output, threads=opts.threads, level=opts.compression_level) as writer:
-            for chunk in iter_fastq_chunks(fq_path, opts.chunk_size):
-                stats.total_fq_count += len(chunk)
-                results = process_chunk(chunk, all_predicts, opts)
-                for rec in results:
-                    writer.write(rec.to_bytes())
-                stats.total_output_count += len(results)
+            stats.total_fq_count, stats.total_output_count = _write_chopped(writer, all_predicts, fq_path, opts)
         stats.output_file = output_name(fq_path, opts, stats)
         os.replace(temp_output, stats.output_file)
     except BaseException:

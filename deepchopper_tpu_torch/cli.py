@@ -8,6 +8,13 @@ counterpart here. `chop` keeps all of its flags. `train` and `eval` keep
 (`train --sweep` is not ported yet). `predict`, `train` and `eval` add
 `--device`: they run on the card unless asked for the CPU; without CUDA they
 exit non-zero and write nothing. `chop` runs on the host only.
+
+Over several ranks, one process a card (`parallel/`): `predict` joins the
+ranks a launcher started (`DC_COORDINATOR`, `DC_NUM_PROCESSES`,
+`DC_PROCESS_ID`, or torchrun's variables), each rank writing its own
+`{rank}_{batch}` shards, or, with `--fused-chop`, chopping its own reads
+into a part that rank 0 merges. `train` and `eval` start
+`trainer.n_devices` ranks themselves when no launcher did.
 """
 
 from __future__ import annotations
@@ -98,12 +105,17 @@ def build_parser() -> argparse.ArgumentParser:
 def predict(args: argparse.Namespace):
     """Run `predict` for parsed arguments. Returns the engine's `PredictStats`
     or, with `--fused-chop`, the chop's stats (`FusedStats` of the streamed
-    runner, `ChopStats` with `--fq` set to another file), with the engine's
+    runner, `ChopStats` with `--fq` set to another file or over several
+    ranks, where ranks other than 0 return None), with the engine's
     `PredictStats` under `extras["engine"]`. Raises FileNotFoundError when no
-    weights are given and DeviceUnavailable when the device is missing."""
+    weights are given and DeviceUnavailable when the device is missing.
+
+    Runs on the ranks of the process group the caller is in (`cmd_predict`
+    joins a launcher's); each rank predicts its interleaved slice."""
     from .device import resolve_device
     from .infer.engine import PredictEngine
     from .models.registry import DeepChopper
+    from .parallel import process_shard_info
 
     if not args.data_path.exists():
         raise FileNotFoundError(f"data path '{args.data_path}' does not exist.")
@@ -132,7 +144,22 @@ def predict(args: argparse.Namespace):
     from .chop import ChopOptions
 
     engine.runtime_setup()  # where the JAX package runs warmup_async: off the timed stream
-    if args.fq is not None and args.fq != args.data_path:
+    rank, world = process_shard_info()
+    if world > 1:
+        # Each rank predicts its interleaved slice into {rank}_{batch} shards,
+        # then chops the reads it predicted into a BGZF part; rank 0 merges
+        # the parts (shard-parallel: smoothing, splitting and deflate run on
+        # every rank at once).
+        from .chop.pipeline import multihost_stream_chop
+        from .io.predicts import load_predicts_from_batch_pts
+        from .parallel import barrier
+
+        engine.predict_file(args.data_path, args.output, max_samples=args.max_sample)
+        barrier("deepchopper_predict_done")
+        own = load_predicts_from_batch_pts(Path(args.output) / "0", pattern=f"{rank}_*")
+        stats = multihost_stream_chop(own, args.fq or args.data_path, ChopOptions(), rank=rank, nprocs=world,
+                                      barrier=barrier)  # fmt: skip
+    elif args.fq is not None and args.fq != args.data_path:
         # The streamed runner predicts and chops one stream; a different
         # qualities file takes the two-phase in-memory path.
         from .chop import stream_chop_with_predicts
@@ -143,21 +170,26 @@ def predict(args: argparse.Namespace):
         from .infer.fused import fused_predict_chop
 
         stats = fused_predict_chop(engine, args.data_path, ChopOptions(), max_samples=args.max_sample)
-    stats.extras["engine"] = engine.stats
+    if stats is not None:
+        stats.extras["engine"] = engine.stats
     return stats
 
 
 def cmd_predict(args: argparse.Namespace) -> int:
     from .device import DeviceUnavailable
+    from .parallel import joined
 
     try:
-        stats = predict(args)
+        with joined(args.device):
+            stats = predict(args)
     except FileNotFoundError as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 1
     except DeviceUnavailable as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 2
+    if stats is None:  # a rank other than 0 of the shard-parallel chop: rank 0 reports
+        return 0
     if args.fused_chop:
         engine = stats.extras["engine"]
         print(
@@ -208,16 +240,33 @@ def train_config(args: argparse.Namespace):
     return cfg
 
 
+def on_ranks(fn, cfg):
+    """`fn(cfg)` on the run's ranks; returns rank 0's result, None on the
+    other ranks. Inside a launcher's ranks each process joins them and runs
+    its own; else `trainer.n_devices` above 1 (None: every visible card)
+    spawns that many ranks (`parallel.launch`), and one rank runs here."""
+    from .parallel import joined, launch, launched_world
+    from .train.loop import world_size
+
+    if launched_world() > 1:
+        with joined(cfg.device) as (rank, _world):
+            out = fn(cfg)
+        return out if rank == 0 else None
+    world = world_size(cfg)
+    return launch(fn, world, cfg.device, args=(cfg,)) if world > 1 else fn(cfg)
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     from .device import DeviceUnavailable
     from .train.loop import train
 
     try:
-        metrics = train(train_config(args))
+        metrics = on_ranks(train, train_config(args))
     except DeviceUnavailable as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 2
-    print(f"train done: {metrics}")
+    if metrics is not None:
+        print(f"train done: {metrics}")
     return 0
 
 
@@ -226,11 +275,12 @@ def cmd_eval(args: argparse.Namespace) -> int:
     from .train.loop import evaluate
 
     try:
-        metrics = evaluate(train_config(args))
+        metrics = on_ranks(evaluate, train_config(args))
     except DeviceUnavailable as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 2
-    print(f"eval done: {metrics}")
+    if metrics is not None:
+        print(f"eval done: {metrics}")
     return 0
 
 
@@ -240,6 +290,9 @@ def main(argv: list[str] | None = None) -> int:
         level=logging.INFO if getattr(args, "verbose", False) else logging.WARNING,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
+    from .utils.pylogger import suppress_warnings
+
+    suppress_warnings(verbose=getattr(args, "verbose", False))
     handlers = {"predict": cmd_predict, "chop": cmd_chop, "train": cmd_train, "eval": cmd_eval}
     return handlers[args.command](args)
 

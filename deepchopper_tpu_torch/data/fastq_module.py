@@ -46,11 +46,20 @@ def iter_encoded_reads(
     max_length: int = 32768,
     has_targets: bool = True,
     max_samples: int | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> Iterator[EncodedRead]:
-    """Stream tokenizer-contract encoded reads from a FASTQ file."""
+    """Stream tokenizer-contract encoded reads from a FASTQ file.
+
+    `shard=(rank, count)` keeps the reads whose index % count == rank: each
+    rank of a data-parallel predict reads its interleaved slice.
+    `max_samples` counts reads globally, before the shard is taken, so a
+    sharded run covers the reads a one-rank run does."""
+    rank, count = shard or (0, 1)
     for i, rec in enumerate(parse_fastq_file(file_path, has_targets)):
         if max_samples is not None and i >= max_samples:
             return
+        if count > 1 and i % count != rank:
+            continue
         yield encode_read(rec["id"], rec["seq"], rec["qual"], rec["target"], max_length)
 
 
@@ -62,10 +71,12 @@ def iter_batches(
     has_targets: bool = True,
     max_samples: int | None = None,
     max_batch: int = 512,
+    shard: tuple[int, int] | None = None,
 ) -> Iterator[Batch]:
-    """FASTQ -> fixed-shape batches, streaming."""
+    """FASTQ -> fixed-shape batches, streaming (`shard` as in
+    `iter_encoded_reads`)."""
     yield from bucketed_batches(
-        iter_encoded_reads(file_path, max_length, has_targets, max_samples),
+        iter_encoded_reads(file_path, max_length, has_targets, max_samples, shard),
         buckets=buckets,
         tokens_per_batch=tokens_per_batch,
         max_batch=max_batch,

@@ -28,7 +28,7 @@ def _fastq_path(path: str | Path) -> Path:
     if not p.name.lower().endswith(_FASTQ_SUFFIXES):
         raise NotImplementedError(
             f"{p}: only FASTQ sources ({', '.join(_FASTQ_SUFFIXES)}) are ported; parquet sources "
-            "need pyarrow and are queued in ROADMAP.md (queue 1, item 11)"
+            "need pyarrow and are queued in ROADMAP.md (queue 1, item 7)"
         )
     return p
 

@@ -16,8 +16,10 @@ reach the device as int8 token ids and uint8 raw phred; the per-read L2
 quality norm runs on the device. Outputs are float32 logits (B, W, 2), or an
 on-device int8 argmax (B, W) with `return_labels`. Shards follow the
 predict -> chop contract under `output_dir/<dataloader_idx>/<rank>_<batch>.{npz,pt}`;
-`predict_to_predicts` and `infer.fused` skip the shards. The JAX engine's mesh
-and its streaming `warmup_async` are not ported.
+`predict_to_predicts` and `infer.fused` skip the shards. The JAX engine's
+streaming `warmup_async` is not ported, nor its single-process `mesh=`: over
+several ranks (`parallel/`) each rank runs its own engine, with its own CUDA
+graphs on its own card, on its interleaved slice of the reads.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..device import resolve_device
 from ..io.predicts import Predict, write_prediction_shard, write_prediction_shard_pt
 from ..ops import _build
 from ..ops.sequence import detokenize_bases
+from ..parallel.mesh import process_shard_info
 
 log = logging.getLogger(__name__)
 
@@ -443,21 +446,32 @@ class PredictEngine:
         self,
         fq_path: str | Path,
         output_dir: str | Path,
-        rank: int = 0,
+        rank: int | None = None,
         dataloader_idx: int = 0,
         max_samples: int | None = None,
         limit_batches: int | None = None,
+        shard: tuple[int, int] | None = None,
         shard_format: str = "npz",
     ) -> PredictStats:
         """Predict a FASTQ and write prediction shards: `shard_format` "npz",
         or "pt" (the reference's torch format, which its `deepchopper-chop`
-        reads)."""
+        reads).
+
+        Over several ranks, `rank` defaults to this process's rank and
+        `shard` to (rank, world size) (`parallel.process_shard_info`): each
+        rank reads its interleaved slice of the FASTQ and writes
+        `{rank}_{batch}` shards, which the chop stage merges."""
         if shard_format not in ("npz", "pt"):
             raise ValueError(f"shard_format must be 'npz' or 'pt', got {shard_format!r}")
         write_shard = write_prediction_shard_pt if shard_format == "pt" else write_prediction_shard
+        this_rank, world = process_shard_info()
+        if rank is None:
+            rank = this_rank
+        if shard is None and world > 1:
+            shard = (this_rank, world)
         out = Path(output_dir) / str(dataloader_idx)
         out.mkdir(parents=True, exist_ok=True)
-        for i, (batch, outputs) in enumerate(self.predict_batches(self._batches(fq_path, max_samples))):
+        for i, (batch, outputs) in enumerate(self.predict_batches(self._batches(fq_path, max_samples, shard))):
             if limit_batches is not None and i >= limit_batches:
                 break
             write_shard(
@@ -471,7 +485,8 @@ class PredictEngine:
         log.info("predict: %d reads, %d batches, %.0f reads/s", self.stats.reads, self.stats.batches, self.stats.reads_per_s)
         return self.stats
 
-    def _batches(self, fq_path: str | Path, max_samples: int | None) -> Iterator[Batch]:
+    def _batches(self, fq_path: str | Path, max_samples: int | None,
+                 shard: tuple[int, int] | None = None) -> Iterator[Batch]:  # fmt: skip
         return iter_batches(
             fq_path,
             max_length=self.max_length,
@@ -479,15 +494,18 @@ class PredictEngine:
             buckets=self.buckets,
             max_samples=max_samples,
             max_batch=self.max_batch,
+            shard=shard,
         )
 
-    def predict_to_predicts(self, fq_path: str | Path, max_samples: int | None = None) -> dict[str, Predict]:
+    def predict_to_predicts(self, fq_path: str | Path, max_samples: int | None = None,
+                            shard: tuple[int, int] | None = None) -> dict[str, Predict]:  # fmt: skip
         """FASTQ -> per-read `Predict`s (on-device argmax, no shard IO), for
-        `chop.pipeline.stream_chop_with_predicts`."""
+        `chop.pipeline.stream_chop_with_predicts`; `shard=(rank, count)`
+        predicts that rank's interleaved slice of the reads."""
         if not self.return_labels:
             raise ValueError("construct PredictEngine(return_labels=True) for the fused path")
         out: dict[str, Predict] = {}
-        for batch, labels in self.predict_batches(self._batches(fq_path, max_samples)):
+        for batch, labels in self.predict_batches(self._batches(fq_path, max_samples, shard)):
             for i, rid in enumerate(batch.read_ids):
                 n = int(batch.lengths[i]) - 1  # strip SEP
                 seq = batch.seqs[i][:n] if batch.seqs is not None else detokenize_bases(batch.input_ids[i, :n])

@@ -48,12 +48,16 @@ class BgzfWriter(io.RawIOBase):
     """Streaming BGZF writer with thread-pooled block compression.
 
     Blocks are drained in order, so output is deterministic regardless of
-    thread count. Closing writes the 28-byte EOF marker.
+    thread count. Closing writes the 28-byte EOF marker, unless
+    `write_eof=False`: a rank of the shard-parallel chop writes a raw block
+    stream, and the merge appends one EOF after every rank's part (BGZF
+    blocks are standalone gzip members, so the concatenation is valid).
     """
 
-    def __init__(self, sink: BinaryIO, threads: int = 4, level: int = 6):
+    def __init__(self, sink: BinaryIO, threads: int = 4, level: int = 6, write_eof: bool = True):
         super().__init__()
         self._sink = sink
+        self._write_eof = write_eof
         self._level = level
         self._threads = max(1, threads)
         self._buf = bytearray()
@@ -111,7 +115,8 @@ class BgzfWriter(io.RawIOBase):
             return
         try:
             self.flush()
-            self._sink.write(BGZF_EOF)
+            if self._write_eof:
+                self._sink.write(BGZF_EOF)
             self._sink.flush()
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
@@ -120,9 +125,9 @@ class BgzfWriter(io.RawIOBase):
             super().close()
 
 
-def open_bgzf_writer(path, threads: int = 4, level: int = 6) -> io.BufferedWriter:
+def open_bgzf_writer(path, threads: int = 4, level: int = 6, write_eof: bool = True) -> io.BufferedWriter:
     """Open a buffered BGZF writer at `path`."""
-    raw = BgzfWriter(open(path, "wb"), threads=threads, level=level)
+    raw = BgzfWriter(open(path, "wb"), threads=threads, level=level, write_eof=write_eof)
     return io.BufferedWriter(raw, buffer_size=MAX_BLOCK_SIZE)
 
 

@@ -98,16 +98,18 @@ def load_predicts_from_batch_pts(
     path: str | Path,
     ignore_label: int = default.IGNORE_LABEL,
     max_predicts: int | None = None,
+    pattern: str = "*",
 ) -> dict[str, Predict]:
     """Load every `.pt`/`.npz` shard under a directory (or one shard file),
-    in sorted path order. `max_predicts` caps the number of shard files. A
-    shard that fails to load is skipped with a warning, as the reference's
-    chop does."""
+    in sorted path order. `max_predicts` caps the number of shard files;
+    `pattern` restricts the walk (`"3_*"` loads rank 3's shards alone, as the
+    shard-parallel chop does). A shard that fails to load is skipped with a
+    warning, as the reference's chop does."""
     path = Path(path)
     if path.is_file():
         files = [path]
     else:
-        files = sorted(p for p in path.rglob("*") if p.suffix in (".pt", ".npz"))
+        files = sorted(p for p in path.rglob(pattern) if p.suffix in (".pt", ".npz"))
     if max_predicts is not None and len(files) > max_predicts:
         files = files[:max_predicts]
     out: dict[str, Predict] = {}

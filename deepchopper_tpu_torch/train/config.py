@@ -74,7 +74,9 @@ class TrainerConfig:
     limit_train_batches: int | None = None
     limit_val_batches: int | None = None
     log_every_n_steps: int = 50
-    n_devices: int | None = None  # None or 1: one device (multi-GPU is not ported yet)
+    # Ranks, one a card. The CLI's train/eval start that many, None = every
+    # visible card (1 on the CPU); a Trainer runs on its process group's.
+    n_devices: int | None = None
     deterministic: bool = True
     gradient_clip: float | None = None
     # Debug shortcuts (reference: configs/debug/fdr.yaml, overfit.yaml):

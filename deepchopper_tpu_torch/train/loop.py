@@ -1,15 +1,25 @@
 """Training/eval orchestration: epoch loop, callbacks, checkpoints, loggers.
 
-Port of `deepchopper_tpu/train/loop.py` on one device: ModelCheckpoint top-1
-on `callbacks.monitor` plus last, EarlyStopping, ReduceLROnPlateau on
-val/loss, fast_dev_run, overfit_batches, limit_*_batches and
-test-on-best. Checkpoints carry the epoch, the step, the best metric, the lr
-and the full optimizer state, so a resume keeps Adam's moments.
+Port of `deepchopper_tpu/train/loop.py`: ModelCheckpoint top-1 on
+`callbacks.monitor` plus last, EarlyStopping, ReduceLROnPlateau on val/loss,
+fast_dev_run, overfit_batches, limit_*_batches and test-on-best.
+Checkpoints carry the epoch, the step, the best metric, the lr and the full
+optimizer state, so a resume keeps Adam's moments.
 
-What differs from the JAX loop: there is no mesh (`trainer.n_devices` other
-than None or 1 raises: multi-GPU training is ROADMAP queue 1 item 9); batch
-rows are not padded to a multiple of 8 (that padding only avoided XLA
-recompiles); the wandb-offline and mlflow loggers are not ported yet.
+Over several ranks (`trainer.n_devices`, `parallel/`) the JAX loop's
+batch-sharded mesh becomes DDP, one rank a card. Every rank reads the same
+seeded batch stream; a batch's rows are padded to a multiple of the ranks
+and rank r steps on the row block [r B/n, (r+1) B/n), as a batch-sharded
+`NamedSharding` lays them out, with the global batch's loss denominators
+(`loss.loss_counts`) and gradients summed, not averaged: the loss and the
+gradients are those of one device running the whole batch. Val and test
+metrics are summed over the ranks, so the plateau scheduler and early
+stopping step alike everywhere; checkpoints, the config and the loggers are
+written by rank 0 alone, each followed by a barrier.
+
+What differs from the JAX loop: one rank's rows are not padded to a multiple
+of 8 (that padding only avoided XLA recompiles); the wandb-offline and mlflow
+loggers are not ported yet (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -18,23 +28,27 @@ import csv
 import dataclasses
 import itertools
 import json
-import logging
 import time
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import default
 from ..data.bucketing import Batch
 from ..data.parquet_module import DataModule
 from ..device import resolve_device
 from ..models.registry import DeepChopper, load_checkpoint, load_state_strict, save_checkpoint
+from ..parallel import all_reduce_sum, barrier, check_world, local_device, process_shard_info
+from ..utils.pylogger import RankedLogger
 from .config import TrainConfig, format_config_tree, save_config
+from .loss import loss_counts
 from .metrics import BinaryStats, stats_from_array
 from .step import eval_step, get_lr, make_optimizer, set_lr, train_step
 
-log = logging.getLogger(__name__)
+log = RankedLogger(__name__, rank_zero_only=True)  # one line a run, not one a rank
 
 
 @dataclasses.dataclass
@@ -137,7 +151,7 @@ class MultiLogger:
             elif name == "jsonl":
                 self.backends.append(JsonlLogger(out_dir / "metrics.jsonl"))
             elif name in ("wandb", "wandb_offline", "mlflow"):
-                log.warning("logger backend %r is not ported yet (ROADMAP.md queue 1, item 11)", name)
+                log.warning("logger backend %r is not ported yet (ROADMAP.md queue 1, item 7)", name)
             else:
                 log.warning("unknown logger backend %r (csv, tensorboard, jsonl)", name)
 
@@ -154,23 +168,76 @@ class TrialPruned(Exception):
     """Raised by an epoch callback to stop an unpromising sweep trial early."""
 
 
+def world_size(cfg: TrainConfig) -> int:
+    """The ranks the CLI's `train` and `eval` start for `cfg`:
+    `trainer.n_devices`, where None is every visible card, or 1 on the CPU.
+    Raises ValueError for more cards than are visible and DeviceUnavailable
+    when the card is missing."""
+    n = cfg.trainer.n_devices
+    if n is not None and n > 1:
+        check_world(n, cfg.device)
+        return n
+    if resolve_device(cfg.device).type == "cpu":
+        return 1
+    return torch.cuda.device_count() if n is None else 1
+
+
+def rank_block(a: np.ndarray, fill, rank: int, world: int) -> np.ndarray:
+    """Rank `rank`'s block of a batch's rows, the rows first padded with
+    `fill` up to a multiple of `world`: rows [r B/n, (r+1) B/n)."""
+    rows = -(-len(a) // world)
+    pad = rows * world - len(a)
+    if pad:
+        a = np.concatenate([a, np.full((pad, *a.shape[1:]), fill, a.dtype)])
+    return a[rank * rows : (rank + 1) * rows]
+
+
+def _sum_gradients(state, bucket):
+    """DDP communication hook: sum a bucket of gradients over the ranks
+    (DDP's default divides the sum by the world size). Unannotated: DDP
+    checks a hook's annotations against its own types, and this module's
+    are strings."""
+    del state
+    return dist.all_reduce(bucket.buffer(), async_op=True).get_future().then(lambda fut: fut.value()[0])
+
+
+def data_parallel(model: torch.nn.Module, device: torch.device) -> torch.nn.parallel.DistributedDataParallel:
+    """`model` under DDP with its gradients summed over the ranks: each rank's
+    loss is its rows' share of the global mean (`loss.loss_counts`), so the
+    sum is the global gradient, where DDP's default average would be the
+    mean of the ranks' own means."""
+    ddp = torch.nn.parallel.DistributedDataParallel(model, device_ids=[device] if device.type == "cuda" else None)
+    ddp.register_comm_hook(None, _sum_gradients)
+    return ddp
+
+
 class Trainer:
-    """Epoch loop + callbacks over `train_step` on one device."""
+    """Epoch loop + callbacks over `train_step`, on one device or on one rank
+    of several (a process group set up by `parallel.launch` or a launcher)."""
 
     def __init__(self, cfg: TrainConfig, epoch_callback=None):
         """`epoch_callback(row)` is invoked after every epoch with the metrics
-        row; raising `TrialPruned` from it ends fit() early. Raises
-        DeviceUnavailable when cfg.device is "cuda" and there is no CUDA."""
-        if cfg.trainer.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"trainer.n_devices={cfg.trainer.n_devices}: multi-GPU training (DDP) is not ported yet "
-                "(ROADMAP.md queue 1, item 9)"
+        row; raising `TrialPruned` from it ends fit() early.
+
+        The ranks are those of the process group this process is in (one
+        without a group); `trainer.n_devices` None takes them as they are.
+        Raises DeviceUnavailable when cfg.device is "cuda" and there is no
+        CUDA, and ValueError when an explicit `trainer.n_devices` asks for
+        more cards than are visible or differs from the group's size."""
+        self.rank, self.world = process_shard_info()
+        n = cfg.trainer.n_devices
+        if n is not None and n > 1:
+            check_world(n, cfg.device)
+        if n is not None and n != self.world:
+            raise ValueError(
+                f"trainer.n_devices={n} and this process is one of {self.world} ranks: start the ranks with "
+                "parallel.launch (the CLI's train and eval do) or a launcher"
             )
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.device = local_device(cfg.device)
         self.out_dir = Path(cfg.output_dir) / cfg.task_name
         self.ckpt_dir = self.out_dir / "checkpoints"
-        self.logger = MultiLogger(self.out_dir, cfg.trainer.loggers)
+        self.logger = MultiLogger(self.out_dir, cfg.trainer.loggers if self.rank == 0 else "")
         self.history: list[dict[str, float]] = []
         self.step_losses: list[float] = []
         self.global_step = 0
@@ -206,13 +273,29 @@ class Trainer:
         optimizer = make_optimizer(model.parameters(), cfg.optimizer.lr, cfg.optimizer.weight_decay)
         return model, optimizer
 
-    def _device_batch(self, batch: Batch) -> dict[str, torch.Tensor]:
+    def _device_batch(self, batch: Batch) -> tuple[dict[str, torch.Tensor], tuple[int, int] | None]:
+        """This rank's rows of `batch` on its device, and the denominators of
+        the whole batch's loss (None for one rank: the rows are the batch)."""
+        ids, quals, labels = batch.input_ids, batch.quals, batch.labels
+        counts = None
+        if self.world > 1:
+            counts = loss_counts(labels)
+            ids = rank_block(ids, default.TOKEN_PAD, self.rank, self.world)
+            quals = rank_block(quals, 0, self.rank, self.world)
+            labels = rank_block(labels, default.IGNORE_LABEL, self.rank, self.world)
         dev = self.device
-        return {
-            "input_ids": torch.from_numpy(batch.input_ids).to(dev, torch.int64),
-            "input_quals": torch.from_numpy(batch.quals).to(dev),
-            "labels": torch.from_numpy(batch.labels).to(dev, torch.int64),
+        tensors = {
+            "input_ids": torch.from_numpy(ids).to(dev, torch.int64),
+            "input_quals": torch.from_numpy(quals).to(dev),
+            "labels": torch.from_numpy(labels).to(dev, torch.int64),
         }
+        return tensors, counts
+
+    def _on_rank_zero(self, write, *args) -> None:
+        """Run a writer on rank 0 alone, then wait for every rank."""
+        if self.rank == 0:
+            write(*args)
+        barrier("deepchopper_rank0_write")
 
     # -- loops -------------------------------------------------------------
 
@@ -222,7 +305,8 @@ class Trainer:
         for i, batch in enumerate(batches):
             if limit is not None and i >= limit:
                 break
-            out = eval_step(model, self._device_batch(batch), self.cfg.model.lambda_penalty)
+            inputs, counts = self._device_batch(batch)
+            out = eval_step(model, inputs, self.cfg.model.lambda_penalty, counts)
             losses.append(float(out["loss"]))
             total = total + stats_from_array(out["stats"].cpu())
         return {
@@ -251,10 +335,12 @@ class Trainer:
             overfit_cache = list(itertools.islice(dm.train_batches(0), cfg.trainer.overfit_batches))
             log.info("overfit mode: %d cached batches", len(overfit_cache))
         model, optimizer = self._build()
-        log.info("model %s: %d params on %s", cfg.model.name, param_count(model), self.device)
-        self.out_dir.mkdir(parents=True, exist_ok=True)
-        save_config(cfg, self.out_dir / "config.yaml")
-        log.info("run config:\n%s", format_config_tree(cfg))
+        step_model = data_parallel(model, self.device) if self.world > 1 else model
+        log.info("model %s: %d params on %s, %d rank(s)", cfg.model.name, param_count(model), self.device, self.world)
+        if self.rank == 0:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+            save_config(cfg, self.out_dir / "config.yaml")
+            log.info("run config:\n%s", format_config_tree(cfg))
 
         plateau = PlateauScheduler(cfg.optimizer.plateau_factor, cfg.optimizer.plateau_patience, cfg.optimizer.min_lr)
         stopper = EarlyStopping(cfg.callbacks.early_stop_patience, cfg.callbacks.monitor_mode, cfg.callbacks.min_delta)
@@ -276,9 +362,9 @@ class Trainer:
             for i, batch in enumerate(train_src):
                 if cfg.trainer.limit_train_batches is not None and i >= cfg.trainer.limit_train_batches:
                     break
-                aux = train_step(
-                    model, optimizer, self._device_batch(batch), cfg.model.lambda_penalty, cfg.trainer.gradient_clip
-                )
+                inputs, counts = self._device_batch(batch)
+                aux = train_step(step_model, optimizer, inputs, cfg.model.lambda_penalty, cfg.trainer.gradient_clip,
+                                 counts)  # fmt: skip
                 self.global_step += 1
                 train_losses.append(float(aux["loss"]))
                 self.step_losses.append(train_losses[-1])
@@ -309,7 +395,7 @@ class Trainer:
                 "time_s": time.monotonic() - t0,
             }
             self.history.append(row)
-            self.logger.log(row)
+            self.logger.log(row)  # rank 0's backends; the others have none
             log.info(
                 "epoch %d: train/loss=%.4f val/loss=%.4f val/f1=%.4f (%.1fs)",
                 epoch, row["train/loss"], val["loss"], val["f1"], row["time_s"],
@@ -340,7 +426,7 @@ class Trainer:
 
         key = "best_" + cfg.callbacks.monitor.replace("/", "_")
         result = {key: best_metric if best_metric is not None else float("nan")}
-        (self.out_dir / "result.json").write_text(json.dumps(result))
+        self._on_rank_zero((self.out_dir / "result.json").write_text, json.dumps(result))
         return result
 
     def test(self, datamodule: DataModule | None = None, ckpt_path: str | Path | None = None) -> dict[str, float]:
@@ -354,26 +440,22 @@ class Trainer:
         model, _optimizer = self._build()
         metrics = self._run_eval(model, dm.test_batches(), None)
         row = {"epoch": -1, **{f"test/{k}": v for k, v in metrics.items()}}
-        self.out_dir.mkdir(parents=True, exist_ok=True)
-        (self.out_dir / "test_metrics.json").write_text(json.dumps(row))
+        self._on_rank_zero(self._write_json, self.out_dir / "test_metrics.json", row)
         log.info("test: %s", row)
         return metrics
+
+    @staticmethod
+    def _write_json(path: Path, row: dict) -> None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(row))
 
     # -- checkpoint io -----------------------------------------------------
 
     def _save(self, path: Path, model, optimizer, epoch: int, best: float | None) -> None:
-        save_checkpoint(
-            path,
-            model,
-            optimizer.state_dict(),
-            {
-                "epoch": epoch,
-                "step": self.global_step,
-                "best_metric": best,
-                "model": self.cfg.model.name,
-                "lr": get_lr(optimizer),
-            },
-        )
+        """Write a checkpoint of `model` (never its DDP wrapper) from rank 0."""
+        meta = {"epoch": epoch, "step": self.global_step, "best_metric": best, "model": self.cfg.model.name,
+                "lr": get_lr(optimizer)}  # fmt: skip
+        self._on_rank_zero(save_checkpoint, path, model, optimizer.state_dict(), meta)
 
     def _restore(self, path: str | Path, model, optimizer) -> tuple[int, float | None]:
         state, opt_state, meta = load_checkpoint(path)
@@ -422,6 +504,8 @@ def evaluate(cfg: TrainConfig) -> dict[str, float]:
         engine = PredictEngine(
             model, max_length=cfg.data.max_length, tokens_per_batch=cfg.data.tokens_per_batch, device=trainer.device
         )
+        # Over several ranks each writes its own {rank}_{batch} shards.
         stats = engine.predict_file(cfg.data.predict_data_path, trainer.out_dir / "predictions")
-        return {"predict/reads": float(stats.reads)}
+        reads = all_reduce_sum(torch.tensor([stats.reads], dtype=torch.int64, device=trainer.device))
+        return {"predict/reads": float(reads.item())}
     return {f"test/{k}": v for k, v in trainer.test(ckpt_path=cfg.model.checkpoint).items()}

@@ -1,7 +1,10 @@
 """Binary classification metrics with ignore-index masking.
 
 Port of `deepchopper_tpu/train/metrics.py`: additive (tp, fp, fn, tn) counts
-per batch, summed on the host across batches.
+per batch, summed on the host across batches. Over several ranks a batch's
+counts are first summed across the ranks on the device (`binary_stats_arrays`
+is an int64 tensor, `train.step` all-reduces it), so every rank holds the
+global batch's.
 """
 
 from __future__ import annotations

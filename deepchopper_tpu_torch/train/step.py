@@ -10,12 +10,18 @@ epochs.
 
 A batch is a dict of tensors on the model's device: `input_ids` (B, W) int64,
 `input_quals` (B, W) float32 and `labels` (B, W) int64 (-100 = ignored).
+
+Over several ranks each rank steps on its block of a global batch's rows,
+with the global batch's `counts` (`loss.loss_counts`), and its model under
+DDP with gradients summed (`train.loop`): the loss, its gradients and the
+(tp, fp, fn, tn) stats are then the global batch's, on every rank.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import all_reduce_sum
 from .loss import continuous_interval_loss
 from .metrics import binary_stats_arrays
 
@@ -56,25 +62,41 @@ def train_step(
     batch: dict[str, torch.Tensor],
     lambda_penalty: float = 0.0,
     gradient_clip: float | None = None,
+    counts: tuple[int, int] | None = None,
 ) -> dict[str, torch.Tensor]:
     """One optimizer step; returns {"loss": scalar, "stats": (tp, fp, fn, tn)}
-    on the device (the stats from the logits before the update)."""
+    on the device (the stats from the logits before the update).
+
+    With `counts` (a rank's rows of a global batch, `model` under DDP with
+    summed gradients) the loss and stats returned are summed over the ranks,
+    and the clip sees the gradients after DDP's all-reduce: the global ones,
+    as optax's clip does."""
     optimizer.zero_grad(set_to_none=True)
     logits = model(batch["input_ids"], batch["input_quals"])
-    loss = continuous_interval_loss(logits, batch["labels"], lambda_penalty)
+    loss = continuous_interval_loss(logits, batch["labels"], lambda_penalty, counts=counts)
     loss.backward()
     if gradient_clip:
         clip_by_global_norm_([p for group in optimizer.param_groups for p in group["params"]], gradient_clip)
     optimizer.step()
     stats = binary_stats_arrays(torch.argmax(logits.detach(), dim=-1), batch["labels"])
-    return {"loss": loss.detach(), "stats": stats}
+    loss = loss.detach()
+    if counts is not None:
+        all_reduce_sum(loss)
+        all_reduce_sum(stats)
+    return {"loss": loss, "stats": stats}
 
 
 @torch.no_grad()
 def eval_step(
-    model: torch.nn.Module, batch: dict[str, torch.Tensor], lambda_penalty: float = 0.0
+    model: torch.nn.Module, batch: dict[str, torch.Tensor], lambda_penalty: float = 0.0,
+    counts: tuple[int, int] | None = None,
 ) -> dict[str, torch.Tensor]:
+    """Loss, stats and logits of a batch; with `counts`, as in `train_step`,
+    the loss and stats summed over the ranks (the logits stay the rank's)."""
     logits = model(batch["input_ids"], batch["input_quals"])
-    loss = continuous_interval_loss(logits, batch["labels"], lambda_penalty)
-    preds = torch.argmax(logits, dim=-1)
-    return {"loss": loss, "stats": binary_stats_arrays(preds, batch["labels"]), "logits": logits}
+    loss = continuous_interval_loss(logits, batch["labels"], lambda_penalty, counts=counts)
+    stats = binary_stats_arrays(torch.argmax(logits, dim=-1), batch["labels"])
+    if counts is not None:
+        all_reduce_sum(loss)
+        all_reduce_sum(stats)
+    return {"loss": loss, "stats": stats, "logits": logits}

@@ -397,8 +397,10 @@ def test_fast_dev_run_writes_no_checkpoint(sep_fastq, tmp_path):
 
 
 def test_trainer_refuses_several_devices_and_missing_cuda(sep_fastq, tmp_path):
-    with pytest.raises(NotImplementedError, match="DDP"):
-        Trainer(tiny_cfg(sep_fastq, tmp_path, **{"trainer.n_devices": 2}))
+    # More cards than are visible raise ValueError, as JAX's make_mesh does.
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match=f"requested {n} devices, have {torch.cuda.device_count()}"):
+        Trainer(tiny_cfg(sep_fastq, tmp_path, device="cuda", **{"trainer.n_devices": n}))
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     from deepchopper_tpu_torch.device import DeviceUnavailable
