@@ -96,11 +96,29 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    Then overfits one full Hyena batch (loss below half its first value
    within 100 steps) and times the train step of each model: ms/step,
    tokens/s and peak memory.
-6. With `--profile`, profiles one warm `predict --fused-chop` pass of the
+6. The transformer and CNN baselines, the sweep, the model folder and the
+   web core (phase_baselines): `predict --random-init` through the CLI on
+   `transformer` and `cnn` at full width over the phase-3 reads (every read
+   present, finite logits; reads/s, tokens/s, capture seconds); one narrow
+   batch and one row of the 32768 batch in float32 on the card against the
+   same port model on the CPU within 1e-4 of max|logit|, with a control
+   that must fail (the transformer without its positions, the CNN with
+   train-mode BatchNorm); one `train` epoch of each from
+   configs/experiment/{transformer,cnn}.yaml with the csv, jsonl,
+   wandb_offline and mlflow loggers (finite losses, each logger's file),
+   then `predict --checkpoint <best> --model cnn` against the checkpoint's
+   model, BatchNorm buffers included; `train --sweep`, 2 trials of one epoch
+   over optimizer.lr and model.lin1_size on the flagship (results.json with
+   2 trials; mixer_fwd and mixer_bwd at 4 a batch in each); save_pretrained
+   of the flagship and from_pretrained_dir (logits bitwise equal), then
+   `predict --model <folder>`; `predict_record` on one 24575-base record
+   (its 24576 tokens fill the 24576 bucket) against the fused path's labels
+   for that read (the same smoothed intervals).
+7. With `--profile`, profiles one warm `predict --fused-chop` pass of the
    flagship (graphs replayed: the mixer kernel must show in its device
    time), then one more pass of predict and three train steps of each
    model: device time by kernel and the device's busy share.
-7. Prints the kernel table as one JSON line (launches from the train runs;
+8. Prints the kernel table as one JSON line (launches from the train runs;
    conv_fwd's from its op's run; setup's from the fused run) and, last, the
    contract line.
 
@@ -2551,6 +2569,305 @@ def phase_ranks(card: str, fq: Path) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")  # fmt: skip
 
 
+BASELINES = ("transformer", "cnn")
+# Card vs CPU, the same port model in float32: the card's attention backends
+# and cuDNN convolutions sum in other orders than the CPU's.
+BASELINE_F32_TOL = 1e-4
+SWEEP_READS = 64
+
+
+def f32_baseline(name: str, device: str):
+    """`name`'s random-init weights (seed 0) in a float32 copy, in eval mode,
+    on `device` (the CNN computes in float32 at any compute_dtype)."""
+    import dataclasses
+
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    model = DeepChopper.new(name, seed=0, device="cpu")
+    if name == "transformer":
+        f32 = type(model)(dataclasses.replace(model.backbone_config, compute_dtype="float32"),
+                          dataclasses.replace(model.head_config, compute_dtype="float32"))  # fmt: skip
+        f32.load_state_dict(model.state_dict())
+        model = f32
+    return model.to(device).eval()
+
+
+def baseline_against_cpu(name: str, shard_dir: Path) -> None:
+    """One narrow batch (<= 16 rows at width <= 1024) and one row of the
+    32768 batch of the predict run's shards, through `name` in float32 on
+    the card and on the CPU: within BASELINE_F32_TOL of max|logit|. A
+    control must fail that rule: the transformer with its position table
+    zeroed, the CNN with its BatchNorms in train mode (batch statistics)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    shards = [np.load(p) for p in sorted(shard_dir.glob("*.npz"))]
+    narrow = next(s for s in shards if s["seq"].shape[1] <= 1024)
+    wide = next(s for s in shards if s["seq"].shape[1] == 32768)
+    cpu, card = f32_baseline(name, "cpu"), f32_baseline(name, "cuda")
+    control = copy.deepcopy(card)
+    if name == "transformer":
+        control.backbone.positions.zero_()
+    else:
+        control.train()
+    for what, shard, rows in (("narrow", narrow, 16), ("32768", wide, 1)):
+        ids = torch.from_numpy(shard["seq"][:rows]).long()
+        quals = torch.from_numpy(shard["qual"][:rows].astype(np.float32))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu(ids, quals)
+            cpu_s = time.perf_counter() - t0
+            got = card(ids.cuda(), quals.cuda()).cpu()
+            bad = control(ids.cuda(), quals.cuda()).cpu()
+        scale = float(want.abs().max())
+        err, ctl = float((got - want).abs().max()), float((bad - want).abs().max())
+        print(f"  {name} f32 card vs CPU, {what} batch {tuple(ids.shape)}: max|err| {err:.3e} of max|logit| "
+              f"{scale:.3e} (limit {BASELINE_F32_TOL:g} x); control {ctl:.3e}; CPU forward {cpu_s:.1f} s")  # fmt: skip
+        if not err <= BASELINE_F32_TOL * scale:
+            raise SmokeFailure(f"{name} {what}: card vs CPU {err:.3e} > {BASELINE_F32_TOL} x {scale:.3e}")
+        if ctl <= BASELINE_F32_TOL * scale:
+            raise SmokeFailure(f"{name} {what}: the control passed the rule ({ctl:.3e})")
+
+
+def baseline_predict(card: str, name: str, fq: Path) -> Path:
+    """`predict --random-init` through the CLI on `name` over the phase-3
+    reads: every read present with finite logits, the 24576 and 32768
+    buckets run; prints reads/s, tokens/s and the capture seconds. Returns
+    the shard directory."""
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch import cli
+
+    out = fq.parent / name / "out"
+    stats = cli.predict(cli.build_parser().parse_args(["predict", str(fq), "--model", name, "--random-init",
+                                                       "-o", str(out)]))  # fmt: skip
+    torch.cuda.synchronize()
+    names, widths = [], set()
+    for p in sorted((out / "0").glob("*.npz")):
+        s = np.load(p)
+        pred = s["prediction"]
+        if pred.dtype != np.float32 or pred.shape != (*s["seq"].shape, 2) or not np.isfinite(pred).all():
+            raise SmokeFailure(f"{name} {p.name}: prediction {pred.dtype} {pred.shape} "
+                               f"finite={np.isfinite(pred).all()}")  # fmt: skip
+        names += _shard_read_names(s["id"])
+        widths.add(s["seq"].shape[1])
+    if sorted(names) != sorted(f"bench_read_{i}" for i in range(N_READS)) or not {24576, 32768} <= widths:
+        raise SmokeFailure(f"{name}: shards hold {len(names)} reads, widths {sorted(widths)}")
+    print(f"predict {name} on {card}: {stats.reads} reads, {stats.tokens} tokens, {stats.batches} batches, widths "
+          f"{sorted(widths)}; {stats.reads / stats.elapsed_s:.1f} reads/s, {stats.tokens / stats.elapsed_s:.0f} "
+          f"tokens/s ({stats.elapsed_s:.3f} s, lazy captures included; {stats.captures} CUDA graphs captured in "
+          f"{stats.compile_s:.3f} s)")  # fmt: skip
+    return out / "0"
+
+
+LOGGER_FILES = ("metrics.csv", "metrics.jsonl", "wandb/offline-run-*/files/wandb-history.jsonl",
+                "mlruns/0/*/metrics/val/f1")  # fmt: skip
+
+
+def baseline_train(card: str, name: str, fq: Path) -> Path | None:
+    """One `train` epoch of `name` from configs/experiment/<name>.yaml
+    through the CLI, with all four file loggers: finite losses and each
+    logger's file present. Returns the best checkpoint."""
+    import csv
+
+    import torch
+
+    from deepchopper_tpu_torch import cli
+
+    runs = fq.parent / f"train_{name}"
+    argv = ["train", "--config", str(REPO / "configs" / "experiment" / f"{name}.yaml"), f"data.train_data_path={fq}",
+            "trainer.max_epochs=1", "trainer.n_devices=1", "trainer.loggers=csv,jsonl,wandb_offline,mlflow",
+            f"output_dir={runs}", "--device", "cuda"]  # fmt: skip
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    out = runs / "train"
+    if rc != 0:
+        raise SmokeFailure(f"train {name} exited {rc}")
+    missing = [f for f in LOGGER_FILES if not list(out.glob(f))]
+    rows = list(csv.DictReader(open(out / "metrics.csv")))
+    if missing or len(rows) != 1 or not all(math.isfinite(float(rows[0][k])) for k in ("train/loss", "val/loss")):
+        raise SmokeFailure(f"train {name}: logger files missing {missing}, rows {rows}")
+    test = json.loads((out / "test_metrics.json").read_text())
+    print(f"train {name} (CLI, configs/experiment/{name}.yaml, 1 epoch) on {card}: {elapsed:.1f} s with set-up and "
+          f"test-on-best; train/loss {float(rows[0]['train/loss']):.4f}, val/loss {float(rows[0]['val/loss']):.4f}, "
+          f"test/loss {test['test/loss']:.4f}; logger files {list(LOGGER_FILES)} present")  # fmt: skip
+    return sorted((out / "checkpoints").glob("epoch_*.ckpt"))[-1]
+
+
+def cnn_checkpoint_predict(best: Path, fq: Path) -> None:
+    """`predict --checkpoint <best> --model cnn` on 8 reads: the logits of the
+    model in the checkpoint, BatchNorm running statistics included (the
+    checkpoint's state_dict in a fresh CNN, eval mode, on the shards'
+    inputs), within BASELINE_F32_TOL of max|logit|."""
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.models.registry import build_model
+
+    out = fq.parent / "cnn_ckpt_pred"
+    stats = cli.predict(cli.build_parser().parse_args(["predict", str(fq), "--checkpoint", str(best), "--model", "cnn",
+                                                       "--max-sample", "8", "-o", str(out)]))  # fmt: skip
+    state = torch.load(best, weights_only=True)["state_dict"]
+    if torch.equal(state["bn_0.running_var"], torch.ones_like(state["bn_0.running_var"])):
+        raise SmokeFailure("cnn checkpoint: running statistics never moved")
+    model = build_model("cnn")
+    model.load_state_dict(state)
+    model = model.cuda().eval()
+    worst = 0.0
+    for p in sorted((out / "0").glob("*.npz")):
+        s = np.load(p)
+        with torch.no_grad():
+            want = model(torch.from_numpy(s["seq"]).long().cuda(), torch.from_numpy(s["qual"]).cuda()).cpu().numpy()
+        err = float(np.abs(s["prediction"] - want).max()) / float(np.abs(want).max())
+        worst = max(worst, err)
+    if stats.reads != 8 or not worst <= BASELINE_F32_TOL:
+        raise SmokeFailure(f"predict --checkpoint {best.name} --model cnn: {stats.reads} reads, error {worst:.3e}")
+    print(f"  predict --checkpoint {best.name} --model cnn: {stats.reads} reads, the checkpoint's logits within "
+          f"{worst:.3e} of max|logit|")  # fmt: skip
+
+
+SWEEP_YAML = """\
+n_trials: 2
+n_startup_trials: 5
+params:
+  optimizer.lr: interval(0.0001, 0.001)
+  model.lin1_size: choice(256, 1024)
+"""
+
+
+def baseline_sweep(card: str, fq: Path) -> None:
+    """`train --sweep` through the CLI: 2 trials over optimizer.lr and
+    model.lin1_size on the flagship, one epoch each over SWEEP_READS reads:
+    results.json holds 2 trials with finite metrics, and mixer_fwd and
+    mixer_bwd launched 4 a batch in each trial (4 a train batch for both,
+    4 a val or test batch for mixer_fwd)."""
+    import dataclasses
+
+    import torch
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.data.parquet_module import DataModule
+    from deepchopper_tpu_torch.ops import mixer
+
+    (fq.parent / "sweep.yaml").write_text(SWEEP_YAML)
+    argv = ["train", "--sweep", str(fq.parent / "sweep.yaml"), f"data.train_data_path={fq}", f"model.name={HYENA}",
+            "seed=0", "trainer.max_epochs=1", "trainer.n_devices=1", "trainer.loggers=csv",
+            f"output_dir={fq.parent / 'sweep_runs'}", "--device", "cuda"]  # fmt: skip
+    cfg = cli.train_config(cli.build_parser().parse_args(argv))
+    dm = DataModule(**dataclasses.asdict(cfg.data))
+    n_train = len(list(dm.train_batches(0)))
+    n_eval = len(list(dm.val_batches())) + len(list(dm.test_batches()))
+    counts = Counts(mixer)
+    counts.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = counts.read()
+    trials = json.loads((fq.parent / "sweep_runs" / "sweep" / "results.json").read_text())
+    want = {"mixer_fwd": 2 * 4 * (n_train + n_eval), "mixer_bwd": 2 * 4 * n_train}
+    if rc != 0 or len(trials) != 2 or not all(math.isfinite(t["metric"]) for t in trials) or launches != want:
+        raise SmokeFailure(f"train --sweep: rc {rc}, trials {trials}, launches {launches} != {want}")
+    print(f"train --sweep {HYENA} on {card}: 2 trials of 1 epoch ({n_train} train, {n_eval} val+test batches "
+          f"each) in {elapsed:.1f} s; launches {launches} = 2 trials x 4 a batch; trials "
+          f"{[(t['overrides'], round(t['metric'], 4)) for t in trials]}")  # fmt: skip
+
+
+def baseline_model_folder(fq: Path) -> None:
+    """save_pretrained of the flagship, then from_pretrained_dir: bitwise the
+    same logits on one batch; then `predict --model <folder>` on 8 reads."""
+    import torch
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    model = DeepChopper.new(HYENA, seed=5, device="cuda")
+    folder = DeepChopper.save_pretrained(model, fq.parent / "flagship_folder")
+    loaded = DeepChopper.from_pretrained_dir(folder, device="cuda")
+    batch = training_batch(8, 1024, seed=12)
+    with torch.no_grad():
+        same = torch.equal(model(batch["input_ids"], batch["input_quals"]),
+                           loaded(batch["input_ids"], batch["input_quals"]))  # fmt: skip
+    stats = cli.predict(cli.build_parser().parse_args(["predict", str(fq), "--model", str(folder), "--max-sample",
+                                                       "8", "-o", str(fq.parent / "folder_pred")]))  # fmt: skip
+    if not same or stats.reads != 8:
+        raise SmokeFailure(f"model folder: logits bitwise equal {same}, predict --model <folder> {stats.reads} reads")
+    print(f"  model folder {sorted(p.name for p in folder.iterdir())}: from_pretrained_dir logits bitwise equal on "
+          f"(8, 1024); predict --model <folder>: {stats.reads} reads")  # fmt: skip
+
+
+def baseline_web_core(work: Path) -> None:
+    """predict_record on one record of 24575 bases (24576 tokens, the 24576
+    bucket) against the labels the fused path computes for that read
+    (`PredictEngine(return_labels=True)`, as `predict --fused-chop` runs it,
+    over a FASTQ of that one read, one dispatch of one row: the shapes
+    predict_record runs, so bf16 rounding cannot move a near tie): the same
+    labels and the same smoothed intervals; mixer_fwd once a layer. The
+    interval-count gate is lifted on both sides (random weights label
+    hundreds of short runs, and the default gate of 20 would leave both
+    lists empty)."""
+    import numpy as np
+
+    from deepchopper_tpu_torch.data.synth import synth_fastq
+    from deepchopper_tpu_torch.infer.engine import PredictEngine
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+    from deepchopper_tpu_torch.ops import mixer
+    from deepchopper_tpu_torch.ops.labels import smooth_label_region
+    from deepchopper_tpu_torch.ui.main import predict_record
+
+    fq = synth_fastq(work / "one_read.fq", np.array([24575]), seed=7)
+    model = DeepChopper.new(HYENA, seed=0, device="cuda")
+    counts = Counts(mixer)
+    counts.reset()
+    out = predict_record(fq.read_text(), model, approved_interval_number=1 << 20)
+    launches = counts.read()
+    engine = PredictEngine(model, return_labels=True, device="cuda")
+    (pred,) = engine.predict_to_predicts(fq).values()
+    intervals = smooth_label_region(pred.prediction, 21, 13, 1 << 20)
+    n_layer = model.backbone_config.n_layer
+    if engine.stats.shape_counts != {(1, 24576): 1}:
+        raise SmokeFailure(f"predict_record: the fused path dispatched {engine.stats.shape_counts}, not one row")
+    if (not np.array_equal(out["labels"], pred.prediction) or out["smooth_intervals"] != intervals or not intervals
+            or launches["mixer_fwd"] != n_layer):  # fmt: skip
+        raise SmokeFailure(f"predict_record: {int((out['labels'] != pred.prediction).sum())} labels differ, "
+                           f"{len(out['smooth_intervals'])} intervals vs the fused path's {len(intervals)}, "
+                           f"launches {launches}")  # fmt: skip
+    print(f"  predict_record, 24575 bases: labels equal to the fused path's ({int(out['labels'].sum())} adapter), "
+          f"{len(intervals)} smoothed intervals equal (first {intervals[:2]}); mixer_fwd {launches['mixer_fwd']} "
+          f"launches")  # fmt: skip
+
+
+def phase_baselines(card: str, fq: Path) -> None:
+    """The transformer and CNN baselines, the sweep, the model folder and the
+    web core (the header's step 6)."""
+    import numpy as np
+
+    from deepchopper_tpu_torch.data.parquet_module import ratio_split
+    from deepchopper_tpu_torch.data.synth import read_lengths, synth_labelled_fastq
+
+    work = fq.parent / "baselines"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    for name in BASELINES:
+        shards = baseline_predict(card, name, fq)
+        baseline_against_cpu(name, shards)
+    lengths = read_lengths(N_READS, seed=0)
+    train_rows = ratio_split(N_READS, 0.8, 0.1, seed=0).train
+    lengths[train_rows[0]], lengths[train_rows[1]] = 20000, 30000
+    labelled = synth_labelled_fastq(work / "labelled.fq", lengths, seed=0)
+    best = {name: baseline_train(card, name, labelled) for name in BASELINES}
+    cnn_checkpoint_predict(best["cnn"], fq)
+    baseline_sweep(card, synth_labelled_fastq(work / "sweep.fq", lengths[:SWEEP_READS], seed=1))
+    baseline_model_folder(fq)
+    baseline_web_core(work)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="Also profile predict and the train step (device time by kernel)")
@@ -2623,6 +2940,7 @@ def main() -> int:
         timed(phase_overfit, card)
         timed(time_train_step, card, HYENA, ((128, 1024), (4, 32768)), 10)
         timed(time_train_step, card, CADUCEUS, ((64, 1024), (2, 32768)), 3)
+        timed(phase_baselines, card, fq)
         if opts.profile:
             phase_profile(fq)
     except SmokeFailure as exc:

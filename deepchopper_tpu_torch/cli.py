@@ -1,13 +1,16 @@
-"""Command-line interface: `predict`, `chop`, `train`, `eval`.
+"""Command-line interface: `predict`, `chop`, `train`, `eval`, `web`.
 
 Port of those subcommands of `deepchopper_tpu/cli.py`. `predict` keeps its
 flags, `--fused-chop`, `--fq` and `--shard-format` included, except
 `--conv-precision`, which picks the TPU kernels' DFT precision and has no
-counterpart here. `chop` keeps all of its flags. `train` and `eval` keep
-`--config/-c`, the dotted `key.subkey=value` overrides and `--verbose`
-(`train --sweep` is not ported yet). `predict`, `train` and `eval` add
-`--device`: they run on the card unless asked for the CPU; without CUDA they
-exit non-zero and write nothing. `chop` runs on the host only.
+counterpart here; `--model` also takes a model folder (`save_pretrained`).
+`chop` keeps all of its flags. `train` and `eval` keep `--config/-c`, the
+dotted `key.subkey=value` overrides and `--verbose`, and `train` keeps
+`--sweep <yaml>` (TPE + pruning, `train/sweep.py`; each trial on the ranks
+`train` would use). `web` keeps its flags; the UI needs gradio, and without
+it `web` exits 1. `predict`, `train`, `eval` and `web` add `--device`: they
+run on the card unless asked for the CPU; without CUDA they exit non-zero
+and write nothing. `chop` runs on the host only.
 
 Over several ranks, one process a card (`parallel/`): `predict` joins the
 ranks a launcher started (`DC_COORDINATOR`, `DC_NUM_PROCESSES`,
@@ -83,10 +86,23 @@ def _add_train_eval(sub: argparse._SubParsersAction) -> None:
     for name, text in (("train", "Train a model (config file + dotted overrides)"),
                        ("eval", "Evaluate a checkpoint (test split, or predict)")):  # fmt: skip
         p = sub.add_parser(name, help=text)
-        p.add_argument("--config", "-c", type=Path, default=None, help="YAML config file (needs PyYAML)")
+        p.add_argument("--config", "-c", type=Path, default=None,
+                       help="YAML config file (block mappings of scalars, as under configs/)")  # fmt: skip
         p.add_argument("overrides", nargs="*", help="key.subkey=value overrides")
+        if name == "train":
+            p.add_argument("--sweep", type=Path, default=None,
+                           help="hparams-search YAML (TPE + pruning; see configs/hparams_search/)")  # fmt: skip
         p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device to run the model on")
         p.add_argument("--verbose", "-v", action="store_true", help="Log at INFO level")
+
+
+def _add_web(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("web", help="Launch the web UI (needs gradio)")
+    p.add_argument("--port", type=int, default=7860, help="HTTP port for the web UI")
+    p.add_argument("--checkpoint", type=Path, default=None, help="Port checkpoint (torch.save of a state_dict)")
+    p.add_argument("--torch-checkpoint", type=Path, default=None, help="Reference torch checkpoint to convert")
+    p.add_argument("--random-init", action="store_true", help="Run with UNTRAINED weights (demo only)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device to run the model on")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,6 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_predict(sub)
     _add_chop(sub)
     _add_train_eval(sub)
+    _add_web(sub)
     return parser
 
 
@@ -240,27 +257,50 @@ def train_config(args: argparse.Namespace):
     return cfg
 
 
-def on_ranks(fn, cfg):
-    """`fn(cfg)` on the run's ranks; returns rank 0's result, None on the
-    other ranks. Inside a launcher's ranks each process joins them and runs
-    its own; else `trainer.n_devices` above 1 (None: every visible card)
-    spawns that many ranks (`parallel.launch`), and one rank runs here."""
-    from .parallel import joined, launch, launched_world
-    from .train.loop import world_size
+def sweep(args: argparse.Namespace):
+    """Run `train --sweep` for parsed arguments; returns the trials, best
+    first. Raises DeviceUnavailable when the device is missing, before any
+    trial, and ValueError inside a launcher's ranks (the sweep starts each
+    trial's ranks itself)."""
+    from .device import resolve_device
+    from .parallel import launched_world
+    from .train.config import read_yaml
+    from .train.sweep import run_sweep
 
     if launched_world() > 1:
-        with joined(cfg.device) as (rank, _world):
-            out = fn(cfg)
-        return out if rank == 0 else None
-    world = world_size(cfg)
-    return launch(fn, world, cfg.device, args=(cfg,)) if world > 1 else fn(cfg)
+        raise ValueError(
+            "train --sweep starts each trial's ranks itself (trainer.n_devices): run it without a launcher"
+        )
+    cfg = train_config(args)
+    resolve_device(cfg.device)
+    spec = read_yaml(Path(args.sweep).read_text())
+    return run_sweep(
+        cfg,
+        {k: str(v) for k, v in (spec.get("params") or {}).items()},
+        n_trials=int(spec.get("n_trials", 10)),
+        optimized_metric=spec.get("optimized_metric", "best_val_f1"),
+        direction=spec.get("direction", "maximize"),
+        sampler=spec.get("sampler", "tpe"),
+        n_startup_trials=int(spec.get("n_startup_trials", 5)),
+        pruning=bool(spec.get("pruning", True)),
+        monitor=spec.get("monitor"),
+        monitor_mode=spec.get("monitor_mode"),
+        min_resource=int(spec.get("min_resource", 1)),
+        reduction_factor=int(spec.get("reduction_factor", 3)),
+        output_dir=Path(cfg.output_dir) / "sweep",
+    )
 
 
 def cmd_train(args: argparse.Namespace) -> int:
     from .device import DeviceUnavailable
-    from .train.loop import train
+    from .train.loop import on_ranks, train
 
     try:
+        if args.sweep is not None:
+            trials = sweep(args)
+            best = trials[0] if trials else None
+            print(f"sweep done: best={best.metric if best else None} {best.overrides if best else {}}")
+            return 0
         metrics = on_ranks(train, train_config(args))
     except DeviceUnavailable as exc:
         print(f"Error: {exc}", file=sys.stderr)
@@ -272,7 +312,7 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 def cmd_eval(args: argparse.Namespace) -> int:
     from .device import DeviceUnavailable
-    from .train.loop import evaluate
+    from .train.loop import evaluate, on_ranks
 
     try:
         metrics = on_ranks(evaluate, train_config(args))
@@ -281,6 +321,25 @@ def cmd_eval(args: argparse.Namespace) -> int:
         return 2
     if metrics is not None:
         print(f"eval done: {metrics}")
+    return 0
+
+
+def cmd_web(args: argparse.Namespace) -> int:
+    """Serve the single-record UI; exits 1 without gradio (as the JAX
+    package's `web`), 2 without the device."""
+    from .device import DeviceUnavailable, resolve_device
+    from .ui.main import launch
+
+    try:
+        resolve_device(args.device)
+        launch(port=args.port, checkpoint=args.checkpoint, torch_checkpoint=args.torch_checkpoint,
+               random_init=args.random_init, device=args.device)  # fmt: skip
+    except DeviceUnavailable as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 2
+    except ImportError as exc:
+        print(f"web UI unavailable: {exc}", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -293,7 +352,7 @@ def main(argv: list[str] | None = None) -> int:
     from .utils.pylogger import suppress_warnings
 
     suppress_warnings(verbose=getattr(args, "verbose", False))
-    handlers = {"predict": cmd_predict, "chop": cmd_chop, "train": cmd_train, "eval": cmd_eval}
+    handlers = {"predict": cmd_predict, "chop": cmd_chop, "train": cmd_train, "eval": cmd_eval, "web": cmd_web}
     return handlers[args.command](args)
 
 

@@ -1,8 +1,9 @@
 """Top-level token classifiers: backbone + quality-fusing head.
 
-Port of `deepchopper_tpu/models/classifier.py:HyenaTokenClassifier` and
-`CaduceusTokenClassifier`. Both take input_ids (B, L) int and input_quals
-(B, L) float32 and return logits (B, L, 2) float32. For the inference
+Port of `deepchopper_tpu/models/classifier.py`: `HyenaTokenClassifier`,
+`CaduceusTokenClassifier` and `TransformerTokenClassifier`. Each takes
+input_ids (B, L) int and input_quals (B, L) float32 and returns logits
+(B, L, 2) float32. For the inference
 engine's CUDA graphs, each also takes a `memo` of work that depends on the
 width alone, and names what its forward reads from outside its arguments
 and weights (`graph_key`).
@@ -14,9 +15,10 @@ import torch
 from torch import nn
 
 from .caduceus import CaduceusBackbone
-from .config import CaduceusConfig, HeadConfig, HyenaConfig
-from .head import TokenClassificationHead
+from .config import CaduceusConfig, HeadConfig, HyenaConfig, TransformerConfig
+from .head import BenchmarkCNN, TokenClassificationHead
 from .hyena import HyenaBackbone, mixer_route
+from .transformer import TransformerBackbone
 
 
 class _TokenClassifier(nn.Module):
@@ -67,4 +69,18 @@ class CaduceusTokenClassifier(_TokenClassifier):
         return self.head(self.backbone(input_ids).transpose(1, 2), input_quals)
 
 
-TokenClassifier = HyenaTokenClassifier | CaduceusTokenClassifier
+class TransformerTokenClassifier(_TokenClassifier):
+    """The transformer-encoder baseline, whose (B, L, D) hidden state reaches
+    the channel-first head as a transposed view."""
+
+    def __init__(self, backbone_config: TransformerConfig, head_config: HeadConfig, name: str = ""):
+        super().__init__(TransformerBackbone(backbone_config), backbone_config, head_config, name)
+
+    def forward(self, input_ids: torch.Tensor, input_quals: torch.Tensor, memo: dict | None = None,
+                pad_mask: torch.Tensor | None = None) -> torch.Tensor:  # fmt: skip
+        """`memo`: unused. `pad_mask` (B, L) bool, True where a key may be
+        attended; the engine and the trainer pass none, as the JAX ones do."""
+        return self.head(self.backbone(input_ids, pad_mask).transpose(1, 2), input_quals)
+
+
+TokenClassifier = HyenaTokenClassifier | CaduceusTokenClassifier | TransformerTokenClassifier | BenchmarkCNN

@@ -1,6 +1,7 @@
-"""Model configurations for the Hyena and Caduceus token classifiers.
+"""Model configurations for the Hyena, Caduceus, transformer and CNN token
+classifiers.
 
-Copy of the Hyena and Caduceus parts of `deepchopper_tpu/models/config.py`.
+Copy of `deepchopper_tpu/models/config.py`.
 Field names and defaults are the JAX configs', so a config converts field by
 field. Two JAX fields are left out, each because the port has a single
 implementation per device: Hyena's `conv_impl` (the long conv is `ops/mixer.py`,
@@ -116,4 +117,32 @@ class HeadConfig:
     use_identity_layer_for_qual: bool = True
     use_qual: bool = True
     # Matmul dtype; parameters stay float32 and logits are returned float32.
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Transformer-encoder baseline. LayerNorm and the residual stream run in
+    float32; attention, its projections and the feed-forward in
+    `compute_dtype`."""
+
+    vocab_size: int = 12
+    d_model: int = 256
+    n_heads: int = 8
+    n_layers: int = 4
+    d_ff: int = 1024
+    max_len: int = 32768
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class CnnConfig:
+    """CNN baseline. The JAX module computes in float32 whatever
+    `compute_dtype` says (its layers take no dtype), and so does the port."""
+
+    vocab_size: int = 12
+    embed_dim: int = 100
+    num_filters: tuple[int, ...] = (128, 256, 512)
+    filter_sizes: tuple[int, ...] = (7, 9, 11)
+    num_class: int = 2
     compute_dtype: str = "bfloat16"

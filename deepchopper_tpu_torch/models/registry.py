@@ -1,16 +1,24 @@
 """Model registry and the `DeepChopper` factory.
 
-Port of the Hyena and Caduceus parts of `deepchopper_tpu/models/registry.py`. Factories
-return the classifier `nn.Module` on the requested device, in eval mode (the
-trainer puts its model in train mode). Random initialisation draws from a
-seeded `torch.Generator` with the flax initialisers' distributions (its
-numbers differ from JAX's). Trainer checkpoints are `torch.save` of a dict
-holding the `state_dict`, the optimizer state and the run's metadata.
+Port of `deepchopper_tpu/models/registry.py`. Factories return the
+classifier `nn.Module` on the requested device, in eval mode (the trainer
+puts its model in train mode). Random initialisation draws from a seeded
+`torch.Generator` with the flax initialisers' distributions (its numbers
+differ from JAX's). Trainer checkpoints are `torch.save` of a dict holding
+the `state_dict` (the CNN's BatchNorm running statistics included), the
+optimizer state and the run's metadata.
+
+A model folder (`save_pretrained`, `from_pretrained_dir`, and
+`from_pretrained` of a folder) holds the JAX package's `config.json`
+(`model_name` and the `backbone` config's fields) and the port's own weights,
+`model.pt`, a checkpoint as above; the JAX package's `model.dc` (flax
+msgpack) is not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 from collections.abc import Callable
 from pathlib import Path
@@ -18,8 +26,17 @@ from pathlib import Path
 import torch
 
 from ..device import resolve_device
-from .classifier import CaduceusTokenClassifier, HyenaTokenClassifier, TokenClassifier
-from .config import CADUCEUS_CONFIGS, CADUCEUS_TINY, CADUCEUS_TINY_PS, HYENA_CONFIGS, HeadConfig
+from .classifier import CaduceusTokenClassifier, HyenaTokenClassifier, TokenClassifier, TransformerTokenClassifier
+from .config import (
+    CADUCEUS_CONFIGS,
+    CADUCEUS_TINY,
+    CADUCEUS_TINY_PS,
+    HYENA_CONFIGS,
+    CnnConfig,
+    HeadConfig,
+    TransformerConfig,
+)
+from .head import BenchmarkCNN
 
 log = logging.getLogger(__name__)
 
@@ -59,6 +76,16 @@ def _hyena_tiny() -> HyenaTokenClassifier:
     )
 
 
+@register("transformer")
+def _transformer() -> TransformerTokenClassifier:
+    return TransformerTokenClassifier(TransformerConfig(), _default_head())
+
+
+@register("cnn")
+def _cnn() -> BenchmarkCNN:
+    return BenchmarkCNN(CnnConfig())
+
+
 @register("caduceus-ph_seqlen-131k_d_model-256_n_layer-16")
 def _caduceus_131k() -> CaduceusTokenClassifier:
     return CaduceusTokenClassifier(CADUCEUS_CONFIGS["caduceus-ph_seqlen-131k_d_model-256_n_layer-16"], _default_head())
@@ -94,6 +121,8 @@ def build_model(name: str, head_overrides: dict | None = None) -> TokenClassifie
         over = dict(head_overrides)
         if "lin1_size" in over and "lin2_size" not in over:
             over["lin2_size"] = over["lin1_size"]
+        if not hasattr(model, "head_config"):
+            raise ValueError(f"model {name!r} has no tunable head")
         model = type(model)(model.backbone_config, dataclasses.replace(model.head_config, **over))
     model.name = name
     return model
@@ -183,8 +212,13 @@ class DeepChopper:
         random_init: bool = False,
         device: str | torch.device = "cuda",
     ) -> TokenClassifier:
-        """Pretrained weights; with none given this is a HARD ERROR (silent
-        random weights predict garbage) unless `random_init=True`."""
+        """Pretrained weights: a model folder (`save_pretrained`) when
+        `model_name` is a directory with a config.json; else with no weights
+        given this is a HARD ERROR (silent random weights predict garbage)
+        unless `random_init=True`."""
+        local = Path(model_name)
+        if local.is_dir() and (local / "config.json").exists():
+            return DeepChopper.from_pretrained_dir(local, device=device)
         name = DeepChopper.PRETRAINED_ALIASES.get(model_name, model_name)
         if torch_checkpoint is not None:
             from .convert import load_reference_state_dict
@@ -202,3 +236,29 @@ class DeepChopper:
             "state_dict> or --checkpoint <port checkpoint>. "
             "Use --random-init to run with untrained weights (tests/benchmarks only)."
         )
+
+    @staticmethod
+    def save_pretrained(model: TokenClassifier, directory: str | Path) -> Path:
+        """Write a model folder: config.json (the JAX package's: model name
+        and backbone config) and the weights, model.pt."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        cfg = getattr(model, "backbone_config", None)
+        cfg_dict = dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else {}
+        (directory / "config.json").write_text(json.dumps({"model_name": model.name, "backbone": cfg_dict}, indent=1))
+        save_checkpoint(directory / "model.pt", model, metadata={"name": model.name})
+        return directory
+
+    @staticmethod
+    def from_pretrained_dir(directory: str | Path, device: str | torch.device = "cuda") -> TokenClassifier:
+        """Load a folder written by `save_pretrained`."""
+        directory = Path(directory)
+        meta = json.loads((directory / "config.json").read_text())
+        return DeepChopper.from_checkpoint(directory / "model.pt", meta["model_name"], device=device)
+
+    @staticmethod
+    def to_hub(model: TokenClassifier, repo_id: str, directory: str | Path | None = None) -> Path:
+        """Prepare a hub upload folder (`save_pretrained`'s layout) for a
+        later `huggingface-cli upload <repo_id> <folder>`; nothing is sent."""
+        directory = Path(directory or f"hub_upload_{repo_id.replace('/', '_')}")
+        return DeepChopper.save_pretrained(model, directory)

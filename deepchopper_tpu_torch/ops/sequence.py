@@ -74,6 +74,11 @@ def normalize_seq_bytes(seq: np.ndarray) -> np.ndarray:
     return _NORM_LUT[seq]
 
 
+def normalize_seq(seq: str | bytes) -> str:
+    """Uppercase and map non-ACGT(N) characters to N; U/u map to T."""
+    return normalize_seq_bytes(seq_to_bytes(seq)).tobytes().decode("ascii")
+
+
 def tokenize_bases(seq: str | bytes | np.ndarray) -> np.ndarray:
     """Base characters -> token ids (int32), one id per base, no special tokens."""
     return _TOKEN_LUT[seq_to_bytes(seq)]

@@ -2,14 +2,17 @@
 
 Port of `deepchopper_tpu/train/config.py`: the same fields and defaults,
 YAML files and `key.subkey=value` overrides, plus `device` (the run's device:
-"cuda" unless asked for "cpu"). PyYAML is imported only where a YAML file is
-read; `save_config` writes the run's config.yaml with a small emitter for
-this tree of scalars, which `yaml.safe_load` reads back.
+"cuda" unless asked for "cpu"). YAML is read and written without PyYAML, for
+the form every config of the repository takes, a block mapping of mappings
+and scalars: `read_yaml` resolves scalars as `yaml.safe_load` does and
+refuses any other form; `save_config` writes the run's config.yaml with a
+small emitter, which `yaml.safe_load` reads back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Any
 
@@ -171,6 +174,111 @@ def save_config(cfg: TrainConfig, path: str | Path) -> None:
     path.write_text("\n".join(_yaml_lines(_to_dict(cfg), 0)) + "\n")
 
 
+# YAML 1.1 scalars as PyYAML's safe loader resolves them.
+_BOOLS = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON")}
+_BOOLS.update({v: False for v in ("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF")})
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_INT_BASE = re.compile(r"[-+]?0(?:b[0-1_]+|x[0-9a-fA-F_]+|[0-7_]+)")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9_]+(?:[eE][-+][0-9]+)?")
+_INF = re.compile(r"[-+]?\.(?:inf|Inf|INF)")
+_NAN = re.compile(r"\.(?:nan|NaN|NAN)")
+
+
+def _plain_scalar(text: str) -> Any:
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _INT_BASE.fullmatch(text):
+        sign, digits = (-1, text[1:]) if text[0] == "-" else (1, text.lstrip("+"))
+        digits = digits.replace("_", "")
+        base = {"b": 2, "x": 16}.get(digits[1:2], 8)
+        return sign * int(digits[2:] if base != 8 else digits, base)
+    if _FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    if _INF.fullmatch(text):
+        return float("-inf") if text[0] == "-" else float("inf")
+    if _NAN.fullmatch(text):
+        return float("nan")
+    if text[0] in "[{&*!|>%@`-?" or ": " in text:
+        raise ValueError(f"unsupported YAML scalar {text!r}")
+    return text
+
+
+def _split_value(text: str, where: str) -> Any:
+    """A value after `key:`, comment stripped: a quoted string or a plain
+    scalar."""
+    if text[:1] in ("'", '"'):
+        q = text[0]
+        i, out = 1, []
+        while i < len(text):
+            c = text[i]
+            if c == q and q == "'" and text[i + 1 : i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            if c == "\\" and q == '"':
+                esc = text[i + 1 : i + 2]
+                if esc not in ('"', "\\"):
+                    raise ValueError(f"{where}: unsupported escape \\{esc}")
+                out.append(esc)
+                i += 2
+                continue
+            if c == q:
+                rest = text[i + 1 :].strip()
+                if rest and not rest.startswith("#"):
+                    raise ValueError(f"{where}: text after a quoted scalar")
+                return "".join(out)
+            out.append(c)
+            i += 1
+        raise ValueError(f"{where}: unterminated quoted scalar")
+    m = re.search(r"\s#", text)
+    return _plain_scalar((text[: m.start()] if m else text).strip())
+
+
+def read_yaml(text: str) -> dict:
+    """Parse a block mapping of mappings and scalars (the form of every
+    config of the repository) to the dict `yaml.safe_load` returns; any
+    other YAML (lists, flow collections, anchors, multi-line scalars)
+    raises ValueError."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        stripped = raw.strip()
+        if not stripped or stripped.startswith("#") or stripped == "---":
+            continue
+        if "\t" in raw[: len(raw) - len(raw.lstrip())]:
+            raise ValueError(f"line {n}: tab indentation")
+        lines.append((n, len(raw) - len(raw.lstrip(" ")), stripped))
+
+    def block(i: int, indent: int) -> tuple[dict, int]:
+        out: dict = {}
+        while i < len(lines):
+            n, ind, body = lines[i]
+            if ind < indent:
+                break
+            if ind > indent:
+                raise ValueError(f"line {n}: unexpected indentation")
+            m = re.match(r"""('(?:[^']|'')*'|"[^"]*"|[^'"#][^#]*?):(?:\s+(.*))?$""", body)
+            if m is None or body.startswith("- "):
+                raise ValueError(f"line {n}: not a `key: value` line: {body!r}")
+            key = _split_value(m.group(1), f"line {n}")
+            value = m.group(2)
+            i += 1
+            if value is None or value.startswith("#"):
+                if i < len(lines) and lines[i][1] > indent:
+                    out[key], i = block(i, lines[i][1])
+                else:
+                    out[key] = None
+            else:
+                out[key] = _split_value(value, f"line {n}")
+        return out, i
+
+    data, _ = block(0, lines[0][1]) if lines else ({}, 0)
+    return data
+
+
 def apply_override(cfg: Any, key: str, value: str) -> None:
     """Apply one `a.b.c=value` override with type coercion from the field type."""
     parts = key.split(".")
@@ -209,15 +317,7 @@ def load_config(
     """Build a TrainConfig from an optional YAML file + dotted overrides."""
     cfg = TrainConfig()
     if path is not None:
-        try:
-            import yaml
-        except ImportError as exc:
-            raise ImportError(
-                f"reading the config file {path} needs PyYAML, which is not installed; "
-                "pass the settings as key.subkey=value overrides instead"
-            ) from exc
-        data = yaml.safe_load(Path(path).read_text()) or {}
-        cfg = _from_dict(TrainConfig, data)
+        cfg = _from_dict(TrainConfig, read_yaml(Path(path).read_text()))
     for ov in overrides or []:
         if "=" not in ov:
             raise ValueError(f"override must look like key=value, got {ov!r}")

@@ -17,9 +17,17 @@ metrics are summed over the ranks, so the plateau scheduler and early
 stopping step alike everywhere; checkpoints, the config and the loggers are
 written by rank 0 alone, each followed by a barrier.
 
+Loggers (`trainer.loggers`): csv, tensorboard, jsonl, wandb_offline (alias
+wandb: a wandb offline run directory written as files) and mlflow (an
+mlflow file store), the JAX loop's files with the same contents.
+
+The model steps in train mode and is evaluated in eval mode: the CNN
+baseline's BatchNorm normalises with batch statistics in the one and its
+running statistics in the other, as the flax module's `train` flag does.
+Batch statistics are one device's: the CNN trains on one rank.
+
 What differs from the JAX loop: one rank's rows are not padded to a multiple
-of 8 (that padding only avoided XLA recompiles); the wandb-offline and mlflow
-loggers are not ported yet (ROADMAP.md queue 1, item 7).
+of 8 (that padding only avoided XLA recompiles).
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ import csv
 import dataclasses
 import itertools
 import json
+import platform
 import time
+import uuid
 from pathlib import Path
 from typing import Any
 
@@ -40,8 +50,18 @@ from .. import default
 from ..data.bucketing import Batch
 from ..data.parquet_module import DataModule
 from ..device import resolve_device
+from ..models.head import BatchNorm
 from ..models.registry import DeepChopper, load_checkpoint, load_state_strict, save_checkpoint
-from ..parallel import all_reduce_sum, barrier, check_world, local_device, process_shard_info
+from ..parallel import (
+    all_reduce_sum,
+    barrier,
+    check_world,
+    joined,
+    launch,
+    launched_world,
+    local_device,
+    process_shard_info,
+)
 from ..utils.pylogger import RankedLogger
 from .config import TrainConfig, format_config_tree, save_config
 from .loss import loss_counts
@@ -136,10 +156,122 @@ def _jsonable(v: Any) -> Any:
     return v
 
 
-class MultiLogger:
-    """Fan a metrics row out to several backends (csv, tensorboard, jsonl)."""
+class WandbOfflineLogger:
+    """A wandb offline run directory, written as files (no wandb client):
+    `wandb/offline-run-<stamp>/files/` with `wandb-metadata.json` (the run
+    config), an appended `wandb-history.jsonl` (one row per epoch, keyed by
+    `_step`), and `wandb-summary.json` rewritten to the latest row."""
 
-    def __init__(self, out_dir: Path, names: str):
+    def __init__(self, out_dir: Path, run_config: dict[str, Any] | None = None):
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        self.run_dir = out_dir / "wandb" / f"offline-run-{stamp}"
+        self.files_dir = self.run_dir / "files"
+        self._step = 0
+        self._started = False
+        self._run_config = run_config or {}
+
+    def _start(self) -> None:
+        self.files_dir.mkdir(parents=True, exist_ok=True)
+        meta = {
+            "mode": "offline",
+            "startedAt": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "host": platform.node(),
+            "python": platform.python_version(),
+            "config": self._run_config,
+        }
+        (self.files_dir / "wandb-metadata.json").write_text(json.dumps(meta, indent=1) + "\n")
+        self._started = True
+
+    def log(self, row: dict[str, Any]) -> None:
+        if not self._started:
+            self._start()
+        rec = {"_step": self._step, "_timestamp": time.time()}
+        rec.update({k: _jsonable(v) for k, v in row.items()})
+        with open(self.files_dir / "wandb-history.jsonl", "a") as fh:
+            fh.write(json.dumps(rec) + "\n")
+        (self.files_dir / "wandb-summary.json").write_text(json.dumps(rec) + "\n")
+        self._step += 1
+
+
+class MlflowFileLogger:
+    """An mlflow local file store (no mlflow client), which `mlflow ui`
+    reads:
+
+        mlruns/0/meta.yaml                  experiment metadata
+        mlruns/0/<run_id>/meta.yaml         run metadata
+        mlruns/0/<run_id>/metrics/<key>     lines of "<ts_ms> <value> <step>"
+        mlruns/0/<run_id>/params/<key>      one value per file
+        mlruns/0/<run_id>/tags/mlflow.runName
+    """
+
+    EXPERIMENT_ID = "0"
+
+    def __init__(self, out_dir: Path, run_config: dict[str, Any] | None = None):
+        self.root = out_dir / "mlruns"
+        self.run_id = uuid.uuid4().hex
+        self.exp_dir = self.root / self.EXPERIMENT_ID
+        self.run_dir = self.exp_dir / self.run_id
+        self._run_config = run_config or {}
+        self._started = False
+        self._step = 0
+
+    def _start(self) -> None:
+        now_ms = int(time.time() * 1000)
+        (self.run_dir / "metrics").mkdir(parents=True, exist_ok=True)
+        for sub in ("params", "tags", "artifacts"):
+            (self.run_dir / sub).mkdir(exist_ok=True)
+        exp_meta = self.exp_dir / "meta.yaml"
+        if not exp_meta.exists():
+            exp_meta.write_text(
+                f"artifact_location: {self.exp_dir.resolve().as_uri()}\n"
+                f"creation_time: {now_ms}\n"
+                f"experiment_id: '{self.EXPERIMENT_ID}'\n"
+                f"last_update_time: {now_ms}\n"
+                "lifecycle_stage: active\n"
+                "name: deepchopper\n"
+            )
+        (self.run_dir / "meta.yaml").write_text(
+            f"artifact_uri: {(self.run_dir / 'artifacts').resolve().as_uri()}\n"
+            "end_time: null\n"
+            "entry_point_name: ''\n"
+            f"experiment_id: '{self.EXPERIMENT_ID}'\n"
+            "lifecycle_stage: active\n"
+            f"run_id: {self.run_id}\n"
+            f"run_name: run-{self.run_id[:8]}\n"
+            f"run_uuid: {self.run_id}\n"
+            "source_name: ''\n"
+            "source_type: 4\n"
+            "source_version: ''\n"
+            f"start_time: {now_ms}\n"
+            "status: 1\n"
+            "user_id: deepchopper\n"
+        )
+        (self.run_dir / "tags" / "mlflow.runName").write_text(f"run-{self.run_id[:8]}")
+        for key, val in self._run_config.items():
+            (self.run_dir / "params" / str(key).replace("/", "_")).write_text(str(val))
+        self._started = True
+
+    def log(self, row: dict[str, Any]) -> None:
+        if not self._started:
+            self._start()
+        ts = int(time.time() * 1000)
+        step = int(row.get("epoch", self._step))
+        for key, val in row.items():
+            if not isinstance(val, (int, float, np.floating, np.integer)):
+                continue
+            path = self.run_dir / "metrics" / str(key)
+            path.parent.mkdir(parents=True, exist_ok=True)  # keys may contain '/'
+            with open(path, "a") as fh:
+                fh.write(f"{ts} {_jsonable(val)} {step}\n")
+        self._step += 1
+
+
+class MultiLogger:
+    """Fan a metrics row out to several backends (csv, tensorboard, jsonl,
+    wandb-offline, mlflow file store); `run_config` is the run's config dict,
+    which the wandb and mlflow backends record."""
+
+    def __init__(self, out_dir: Path, names: str, run_config: dict[str, Any] | None = None):
         self.backends: list[Any] = []
         for name in (n.strip() for n in names.split(",") if n.strip()):
             if name == "csv":
@@ -150,10 +282,12 @@ class MultiLogger:
                 self.backends.append(TensorBoardLogger(out_dir / "tb"))
             elif name == "jsonl":
                 self.backends.append(JsonlLogger(out_dir / "metrics.jsonl"))
-            elif name in ("wandb", "wandb_offline", "mlflow"):
-                log.warning("logger backend %r is not ported yet (ROADMAP.md queue 1, item 7)", name)
+            elif name in ("wandb", "wandb_offline"):
+                self.backends.append(WandbOfflineLogger(out_dir, run_config))
+            elif name == "mlflow":
+                self.backends.append(MlflowFileLogger(out_dir, run_config))
             else:
-                log.warning("unknown logger backend %r (csv, tensorboard, jsonl)", name)
+                log.warning("unknown logger backend %r (csv, tensorboard, jsonl, wandb_offline, mlflow)", name)
 
     def log(self, row: dict[str, Any]) -> None:
         for b in self.backends:
@@ -180,6 +314,20 @@ def world_size(cfg: TrainConfig) -> int:
     if resolve_device(cfg.device).type == "cpu":
         return 1
     return torch.cuda.device_count() if n is None else 1
+
+
+def on_ranks(fn, cfg: TrainConfig, *args):
+    """`fn(cfg, *args)` on the run's ranks; returns rank 0's result, None on
+    the other ranks. Inside a launcher's ranks each process joins them and
+    runs its own; else `trainer.n_devices` above 1 (None: every visible
+    card) spawns that many ranks (`parallel.launch`: `fn` importable by
+    name, its arguments and result picklable), and one rank runs here."""
+    if launched_world() > 1:
+        with joined(cfg.device) as (rank, _world):
+            out = fn(cfg, *args)
+        return out if rank == 0 else None
+    world = world_size(cfg)
+    return launch(fn, world, cfg.device, args=(cfg, *args)) if world > 1 else fn(cfg, *args)
 
 
 def rank_block(a: np.ndarray, fill, rank: int, world: int) -> np.ndarray:
@@ -237,7 +385,7 @@ class Trainer:
         self.device = local_device(cfg.device)
         self.out_dir = Path(cfg.output_dir) / cfg.task_name
         self.ckpt_dir = self.out_dir / "checkpoints"
-        self.logger = MultiLogger(self.out_dir, cfg.trainer.loggers if self.rank == 0 else "")
+        self.logger = MultiLogger(self.out_dir, cfg.trainer.loggers if self.rank == 0 else "", dataclasses.asdict(cfg))
         self.history: list[dict[str, float]] = []
         self.step_losses: list[float] = []
         self.global_step = 0
@@ -300,15 +448,22 @@ class Trainer:
     # -- loops -------------------------------------------------------------
 
     def _run_eval(self, model, batches, limit: int | None) -> dict[str, float]:
+        """Loss and stats over `batches`, the model in eval mode for the
+        duration."""
         total = BinaryStats()
         losses: list[float] = []
-        for i, batch in enumerate(batches):
-            if limit is not None and i >= limit:
-                break
-            inputs, counts = self._device_batch(batch)
-            out = eval_step(model, inputs, self.cfg.model.lambda_penalty, counts)
-            losses.append(float(out["loss"]))
-            total = total + stats_from_array(out["stats"].cpu())
+        was_training = model.training
+        model.eval()
+        try:
+            for i, batch in enumerate(batches):
+                if limit is not None and i >= limit:
+                    break
+                inputs, counts = self._device_batch(batch)
+                out = eval_step(model, inputs, self.cfg.model.lambda_penalty, counts)
+                losses.append(float(out["loss"]))
+                total = total + stats_from_array(out["stats"].cpu())
+        finally:
+            model.train(was_training)
         return {
             "loss": float(np.mean(losses)) if losses else float("nan"),
             "f1": total.f1,
@@ -335,6 +490,11 @@ class Trainer:
             overfit_cache = list(itertools.islice(dm.train_batches(0), cfg.trainer.overfit_batches))
             log.info("overfit mode: %d cached batches", len(overfit_cache))
         model, optimizer = self._build()
+        if self.world > 1 and any(isinstance(m, BatchNorm) for m in model.modules()):
+            raise ValueError(
+                f"{cfg.model.name} normalises with batch statistics, which are one device's: train it on one rank "
+                "(trainer.n_devices=1)"
+            )
         step_model = data_parallel(model, self.device) if self.world > 1 else model
         log.info("model %s: %d params on %s, %d rank(s)", cfg.model.name, param_count(model), self.device, self.world)
         if self.rank == 0:
