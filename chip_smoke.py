@@ -83,11 +83,33 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    fail that rule (check_graph_replay). Then the flagship's whole ladder is
    captured by `warmup()`: its peak and held device memory beside the eager
    step's peak (phase_graph_memory).
-4. Train-step parity, each model and Hyena route: one float32 forward and
+4. The host-only commands on what the main path wrote (phase_eval; no
+   kernel runs, and nothing calls `encode` or reads a parquet source, so
+   the phase needs no pyarrow): a BAM written by the port's `BamWriter` with a
+   seeded record for every read but one (mapped, unmapped, secondary,
+   supplementary, MAPQ on both sides of 20, soft clips on both ends and
+   strands, SA tags on some); `eval-bam` through the CLI over the
+   flagship's npz shards from step 3's predict and over the fused phase's pt
+   shards: the two runs' JSON files byte-identical, named pd300, the
+   withheld read alone under missing_bam_record, every id a read of the
+   FASTQ, and a BAM with a second read withheld (the control) must change
+   the overlap results. Then `stat` on the FASTQ and the BAM (count, min and
+   max of the lengths written), `tools diff` of the reads against the fused
+   chop output, `tools select --type internal`, and a fresh process that
+   imports deepchopper_tpu_torch and resolves its 71 top-level names
+   without importing pyarrow or a kernel wrapper (then reports whether
+   pyarrow imports on this machine). Last, with pyarrow blocked, a ratio
+   split of 64 labelled reads gives the batches of the split with pyarrow
+   as the machine has it (the parquet cache where pyarrow imports), writes
+   no cache, trains two flagship steps through `train`, and a parquet
+   source raises an ImportError naming pyarrow. Prints the phase's wall
+   time, and
+   the whole smoke's before the kernel table.
+5. Train-step parity, each model and Hyena route: one float32 forward and
    backward with the kernels and with the plain version swapped in; every
    gradient leaf within a limit of its max, and a faulty backward must fail
    it (train_parity).
-5. Drives `train` (the CLI's parser and code path) on each model, Hyena on
+6. Drives `train` (the CLI's parser and code path) on each model, Hyena on
    each route, at full width: one epoch over ~300 labelled reads with the benchmark's length mix
    and reads in the 24576 and 32768 buckets, a val pass, test on the best
    checkpoint; checks finite losses, the checkpoints and the launches per
@@ -96,7 +118,7 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    Then overfits one full Hyena batch (loss below half its first value
    within 100 steps) and times the train step of each model: ms/step,
    tokens/s and peak memory.
-6. The transformer and CNN baselines, the sweep, the model folder and the
+7. The transformer and CNN baselines, the sweep, the model folder and the
    web core (phase_baselines): `predict --random-init` through the CLI on
    `transformer` and `cnn` at full width over the phase-3 reads (every read
    present, finite logits; reads/s, tokens/s, capture seconds); one narrow
@@ -114,11 +136,11 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    `predict --model <folder>`; `predict_record` on one 24575-base record
    (its 24576 tokens fill the 24576 bucket) against the fused path's labels
    for that read (the same smoothed intervals).
-7. With `--profile`, profiles one warm `predict --fused-chop` pass of the
+8. With `--profile`, profiles one warm `predict --fused-chop` pass of the
    flagship (graphs replayed: the mixer kernel must show in its device
    time), then one more pass of predict and three train steps of each
    model: device time by kernel and the device's busy share.
-8. Prints the kernel table as one JSON line (launches from the train runs;
+9. Prints the kernel table as one JSON line (launches from the train runs;
    conv_fwd's from its op's run; setup's from the fused run) and, last, the
    contract line.
 
@@ -2290,6 +2312,224 @@ def phase_fused(card: str, fq: Path, counts: Counts) -> int:
     return launches["setup"]  # the CLI pass's: its engine launched the setup kernel once
 
 
+# -- eval-bam, stat, tools and the top-level names --------------------------------------
+
+EVAL_MAPQ = 20  # eval-bam's --min-mapping-quality: the seeded MAPQs fall on both sides
+SA_TAG = b"SAZchr1,100,+,50M,60,0;chr2,5,-,40M,60,1;\x00"
+
+
+def eval_bam_records(fq: Path, seed: int = 0) -> list[tuple]:
+    """`encode_bam_record` arguments for every read of `fq`, from a seed:
+    mapped, unmapped, secondary and supplementary records, MAPQ 0-60, left
+    and right soft clips on either strand, and an SA tag on about one read in
+    ten."""
+    import numpy as np
+
+    from deepchopper_tpu_torch.io.fastq import StreamingFastqReader
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for rec in StreamingFastqReader(fq):
+        n = len(rec.seq)
+        flag = int(rng.choice([0, 0, 0, 0, 0, 16, 16, 4, 256, 2048]))
+        left, right = (int(rng.integers(0, n // 4)) if rng.random() < 0.4 else 0 for _ in range(2))
+        cigar = [] if flag == 4 else [(k, op) for k, op in ((left, "S"), (n - left - right, "M"), (right, "S")) if k]
+        tags = SA_TAG if rng.random() < 0.1 else b""
+        out.append((rec.name, flag, int(rng.integers(0, 61)), cigar, n, None, tags))
+    return out
+
+
+def write_bam(path: Path, records: list[tuple], skip: set[int]) -> Path:
+    from deepchopper_tpu_torch.io import bam
+
+    with bam.BamWriter(path, bam.make_bam_header()) as writer:
+        for i, args in enumerate(records):
+            if i not in skip:
+                writer.write_raw_block(bam.encode_bam_record(*args))
+    return path
+
+
+def cli_stdout(argv: list[str]) -> str:
+    """Run the port's CLI in this process; its stdout, or a SmokeFailure."""
+    import io
+
+    from deepchopper_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise SmokeFailure(f"{' '.join(argv[:2])} exited {rc}")
+    return buf.getvalue()
+
+
+def read_stat(line: str) -> dict[str, float]:
+    """`stat`'s line `<path>: n=.. min=.. p50=.. mean=.. max=..` as numbers."""
+    return {k: float(v) for k, v in (part.split("=") for part in line.rsplit(": ", 1)[1].split())}
+
+
+@contextlib.contextmanager
+def pyarrow_blocked():
+    """`import pyarrow` raises ImportError meanwhile, as where it is not
+    installed; the modules it had loaded are put back after."""
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules) if m == "pyarrow" or m.startswith("pyarrow.")}
+    sys.modules["pyarrow"] = sys.modules["pyarrow.parquet"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["pyarrow"], sys.modules["pyarrow.parquet"]
+        sys.modules.update(saved)
+
+
+def split_without_pyarrow(card: str, work: Path) -> None:
+    """A ratio split of one labelled FASTQ where pyarrow cannot be imported:
+    it must filter the stream, even where a cache was written before, with
+    the batches of the split as this machine runs it (the parquet cache
+    where pyarrow imports); `train` runs two steps on it through the CLI,
+    and a parquet source raises an ImportError that names pyarrow."""
+    import csv
+
+    import numpy as np
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.data.parquet_module import DataModule
+    from deepchopper_tpu_torch.data.synth import read_lengths, synth_labelled_fastq
+
+    fq = synth_labelled_fastq(work / "labelled.fq", read_lengths(64, seed=2), seed=2)
+    kw = dict(train_data_path=str(fq), tokens_per_batch=TOKENS_PER_BATCH)
+    with_pyarrow = DataModule(**kw)
+    route = "the parquet cache" if with_pyarrow._materialize_splits() is not None else "the in-stream split (no pyarrow)"
+    want = [(b.read_ids, b.labels) for b in with_pyarrow.train_batches(0)]
+    with pyarrow_blocked():
+        dm = DataModule(**kw)
+        got = [(b.read_ids, b.labels) for b in dm.train_batches(0)]
+        if dm._materialize_splits() is not None:
+            raise SmokeFailure("split without pyarrow: the split cache was used")
+        if len(got) != len(want) or any(a[0] != b[0] or not np.array_equal(a[1], b[1]) for a, b in zip(got, want)):
+            raise SmokeFailure(f"split without pyarrow: {len(got)} train batches differ from {route}'s {len(want)}")
+        out = work / "train_no_pyarrow"
+        argv = ["train", f"data.train_data_path={fq}", f"model.name={HYENA}", "seed=0", "trainer.max_epochs=1",
+                "trainer.limit_train_batches=2", "trainer.limit_val_batches=1", "trainer.n_devices=1", "test=false",
+                f"output_dir={out}", "--device", "cuda"]  # fmt: skip
+        if cli_stdout(argv).count("train done: {") != 1:
+            raise SmokeFailure("train without pyarrow: no 'train done' line")
+        rows = list(csv.DictReader(open(out / "train" / "metrics.csv")))
+        if len(rows) != 1 or not math.isfinite(float(rows[0]["train/loss"])):
+            raise SmokeFailure(f"train without pyarrow: metrics.csv {rows}")
+        try:
+            list(DataModule(train_data_path=str(work / "reads.parquet")).train_batches(0))
+        except ImportError as exc:
+            if "pyarrow" not in str(exc):
+                raise SmokeFailure(f"parquet source without pyarrow: {exc}") from exc
+        else:
+            raise SmokeFailure("parquet source without pyarrow: no ImportError")
+    print(f"ratio split of {fq.name} (64 reads) with pyarrow blocked, on {card}: in-stream, its {len(got)} train "
+          f"batches equal to those of {route}; train (CLI, {HYENA}, 2 steps) train/loss "
+          f"{float(rows[0]['train/loss']):.4f}; a parquet source raises ImportError naming pyarrow")  # fmt: skip
+
+
+def phase_eval(card: str, fq: Path) -> float:
+    """The host-only commands on what the main path wrote (no kernel runs here,
+    and no `encode` or parquet source, so it needs no pyarrow):
+    `eval-bam` through the CLI over the flagship's npz shards of
+    phase_predict and over phase_fused's pt shards, against a BAM of the
+    port's `BamWriter` holding a seeded record for every read but one; the
+    two runs' JSON files must be byte-identical, name pd300, hold exactly the
+    withheld read under missing_bam_record and only reads of `fq`; a BAM with
+    a second read withheld (the control) must change the overlap results.
+    Then `stat` on the FASTQ and the BAM (counts, min and max of the lengths
+    written), `tools diff` of the reads against the fused chop output and
+    `tools select`, and a fresh process that imports deepchopper_tpu_torch
+    and resolves its 71 top-level names without importing pyarrow or a
+    kernel wrapper, then tries `import pyarrow` to report whether this
+    machine has it; and `split_without_pyarrow`. Returns the phase's wall
+    seconds."""
+    import numpy as np
+
+    from deepchopper_tpu_torch.io.fastq import StreamingFastqReader
+
+    t0 = time.perf_counter()
+    work = fq.parent / "eval"
+    work.mkdir()
+    lengths = {rec.name: len(rec.seq) for rec in StreamingFastqReader(fq)}
+    records = eval_bam_records(fq)
+    withheld, second = (int(i) for i in np.random.default_rng(1).choice(len(records), 2, replace=False))
+    bam_path = write_bam(work / "reads.bam", records, {withheld})
+    shards = {"npz": fq.parent / HYENA / "out" / "0", "pt": fq.parent / "fused" / "pt" / "shards" / "0"}
+    flags = ["--min-mapping-quality", str(EVAL_MAPQ)]
+    outs, printed = {}, {}
+    for fmt, shard_dir in shards.items():
+        if not any(shard_dir.glob(f"*.{fmt}")):
+            raise SmokeFailure(f"eval: no .{fmt} shards in {shard_dir}")
+        printed[fmt] = cli_stdout(["eval-bam", str(bam_path), str(shard_dir), "--output-dir", str(work / fmt), *flags])
+        outs[fmt] = {p.name: p.read_bytes() for p in sorted((work / fmt).glob("*.json"))}
+    if outs["npz"] != outs["pt"] or printed["npz"] != printed["pt"]:
+        raise SmokeFailure(f"eval-bam: npz and pt runs differ: {sorted(outs['npz'])} vs {sorted(outs['pt'])}")
+    names = sorted(outs["npz"])
+    overlap = next((n for n in names if n.startswith("overlap_results_") and n.endswith(f"_pd{N_READS}.json")), None)
+    if f"stats_pd{N_READS}_bt0.json" not in names or overlap is None:
+        raise SmokeFailure(f"eval-bam: files {names}, expected stats_pd{N_READS}_bt0.json and overlap_results_*_pd{N_READS}")
+    results = json.loads(outs["npz"][overlap])
+    missing = results.get("missing_bam_record")
+    if missing != [records[withheld][0]]:
+        raise SmokeFailure(f"eval-bam: missing_bam_record {missing}, expected [{records[withheld][0]}]")
+    strays = {rid for ids in results.values() for rid in ids} - set(lengths)
+    if strays or len(results) < 4:
+        raise SmokeFailure(f"eval-bam: ids not in the reads {sorted(strays)[:5]}; categories {sorted(results)}")
+    control = write_bam(work / "control.bam", records, {withheld, second})
+    cli_stdout(["eval-bam", str(control), str(shards["npz"]), "--output-dir", str(work / "control"), *flags])
+    if (work / "control" / overlap).read_bytes() == outs["npz"][overlap]:
+        raise SmokeFailure("eval-bam: its control (a second read withheld from the BAM) gives the same results")
+    counts = ", ".join(f"{k} {len(v)}" for k, v in sorted(results.items()))
+    print(f"eval-bam over {N_READS} reads (the flagship's shards: phase_predict's npz, phase_fused's pt), "
+          f"--min-mapping-quality {EVAL_MAPQ}: {names} byte-identical between npz and pt; missing_bam_record = "
+          f"[{records[withheld][0]}]; control ({records[second][0]} also withheld) differs; {counts}")  # fmt: skip
+
+    written = [lengths[args[0]] for i, args in enumerate(records) if i != withheld]
+    for path, want in ((fq, list(lengths.values())), (bam_path, written)):
+        line = cli_stdout(["stat", str(path)]).strip()
+        got = read_stat(line)
+        if (got["n"], got["min"], got["max"]) != (len(want), min(want), max(want)):
+            raise SmokeFailure(f"stat {path.name}: {line}; expected n={len(want)} min={min(want)} max={max(want)}")
+        print(f"stat {path.name}: {line.split(': ', 1)[1]}")
+
+    chopped = _chopped(fq.parent / "fused" / "one")
+    diff = cli_stdout(["tools", "diff", str(fq), str(chopped)]).strip()
+    if f"total_original={N_READS}," not in diff:
+        raise SmokeFailure(f"tools diff: {diff}")
+    selected = work / "internal.fq"
+    cli_stdout(["tools", "select", str(chopped), "--type", "internal", "-o", str(selected)])
+    n_internal = _gunzip(chopped).count(b"|I\n")
+    n_selected = selected.read_bytes().count(b"\n+\n")
+    if n_selected != n_internal:
+        raise SmokeFailure(f"tools select: {n_selected} records, {n_internal} internal ids in {chopped.name}")
+    print(f"tools diff {fq.name} {chopped.name}: {diff}")
+    print(f"tools select --type internal: {n_selected} records")
+
+    code = ("import sys\n"
+            "import deepchopper_tpu_torch as d\n"
+            "[getattr(d, n) for n in d.__all__]\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('pyarrow', 'jax')\n"
+            "             or m.startswith('deepchopper_tpu_torch.ops.') and m.rsplit('.', 1)[1] not in ('kmer', 'labels', 'qual', 'sequence'))\n"
+            "try:\n"
+            "    import pyarrow\n"
+            "    have = pyarrow.__version__\n"
+            "except ImportError:\n"
+            "    have = 'absent'\n"
+            "print(len(d.__all__), have, bad)\n")  # fmt: skip
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    count, pyarrow, bad = (res.stdout.strip().split(" ", 2) + ["", "", ""])[:3]
+    if res.returncode != 0 or count != "71" or bad != "[]":
+        raise SmokeFailure(f"top-level names: {res.stdout.strip()!r} (expected 71 names, no pyarrow or kernel wrapper "
+                           f"imported): {res.stderr[-2000:]}")  # fmt: skip
+    print(f"import deepchopper_tpu_torch in a fresh process: 71 top-level names resolved, neither pyarrow nor a "
+          f"kernel wrapper imported; `import pyarrow` afterwards: {pyarrow}")  # fmt: skip
+    split_without_pyarrow(card, work)
+    wall = time.perf_counter() - t0
+    print(f"phase_eval on {card}: wall {wall:.3f} s")
+    return wall
+
+
 RANKS = 2
 RANK_BATCH = (64, 1024)  # the DDP step's global rows and width
 RANK_STEP_LR = 1e-4
@@ -2888,6 +3128,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = gpu_line()
     print(f"gpu: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -2907,6 +3148,7 @@ def main() -> int:
         timed(phase_predict, card, HYENA, fq, Counts(mixer), {"mixer_fwd": 1})
         timed(check_hyena_against_plain, fq, work / HYENA / "out" / "0")
         setup_row["launches"] = timed(phase_fused, card, fq, Counts(mixer, setup))
+        eval_s = timed(phase_eval, card, fq)
         timed(phase_ranks, card, fq)
         with route_env(UNFUSED):
             timed(phase_predict, card, HYENA, fq, Counts(mixer, gated), {"gated_fwd": 1, "mixer_fwd": 0}, "-unfused")
@@ -2946,6 +3188,7 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s on {card}, of which phase_eval {eval_s:.1f} s")
     print(gpu_line())
     print(json.dumps({"kernels": [fwd, bwd, *scan_rows, gated_row, conv_row, inproj_row, setup_row]}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

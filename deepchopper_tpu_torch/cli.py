@@ -1,16 +1,24 @@
-"""Command-line interface: `predict`, `chop`, `train`, `eval`, `web`.
+"""Command-line interface: `predict`, `chop`, `train`, `eval`, `web`,
+`encode`, `stat`, `eval-bam`, `tools`.
 
-Port of those subcommands of `deepchopper_tpu/cli.py`. `predict` keeps its
-flags, `--fused-chop`, `--fq` and `--shard-format` included, except
-`--conv-precision`, which picks the TPU kernels' DFT precision and has no
-counterpart here; `--model` also takes a model folder (`save_pretrained`).
-`chop` keeps all of its flags. `train` and `eval` keep `--config/-c`, the
-dotted `key.subkey=value` overrides and `--verbose`, and `train` keeps
-`--sweep <yaml>` (TPE + pruning, `train/sweep.py`; each trial on the ranks
-`train` would use). `web` keeps its flags; the UI needs gradio, and without
-it `web` exits 1. `predict`, `train`, `eval` and `web` add `--device`: they
-run on the card unless asked for the CPU; without CUDA they exit non-zero
-and write nothing. `chop` runs on the host only.
+Port of `deepchopper_tpu/cli.py`. `predict` keeps its flags, `--fused-chop`,
+`--fq` and `--shard-format` included, except `--conv-precision`, which picks
+the TPU kernels' DFT precision and has no counterpart here; `--model` also
+takes a model folder (`save_pretrained`). `chop` keeps all of its flags.
+`train` and `eval` keep `--config/-c`, the dotted `key.subkey=value`
+overrides and `--verbose`, and `train` keeps `--sweep <yaml>` (TPE +
+pruning, `train/sweep.py`; each trial on the ranks `train` would use). `web`
+keeps its flags; the UI needs gradio, and without it `web` exits 1.
+`predict`, `train`, `eval` and `web` add `--device`: they run on the card
+unless asked for the CPU; without CUDA they exit non-zero and write nothing.
+
+`chop`, `encode`, `stat`, `eval-bam` and `tools` (12 subtools) run on the
+host only and take no `--device`; they keep the JAX package's flags,
+defaults and printed lines. `encode` writes the parquet datasets that
+`train data.train_data_path=<x.parquet>` reads; parquet needs pyarrow.
+`eval-bam` scores prediction shards (`.npz` or `.pt`) against a BAM of the
+unchopped reads, writing `stats_pd{N}_bt{M}.json` and
+`overlap_results_spd{S}_pd{N}.json`.
 
 Over several ranks, one process a card (`parallel/`): `predict` joins the
 ranks a launcher started (`DC_COORDINATOR`, `DC_NUM_PROCESSES`,
@@ -105,6 +113,87 @@ def _add_web(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="Device to run the model on")
 
 
+def _add_host(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("encode", help="Encode FASTQ(s) to parquet datasets")
+    p.add_argument("paths", type=Path, nargs="+", help="FASTQ files or folders of FASTQs")
+    p.add_argument("--chunk", action="store_true", help="Write chunked parquet")
+    p.add_argument("--chunk-size", type=int, default=1_000_000, help="Records per parquet chunk with --chunk")
+
+    p = sub.add_parser("stat", help="Read-length summary for FASTQ/FASTA/BAM")
+    p.add_argument("path", type=Path, help="FASTQ/FASTA/BAM file to summarize")
+
+    p = sub.add_parser("eval-bam", help="BAM overlap evaluation of predictions")
+    p.add_argument("bam", type=Path, help="Aligned BAM of the ORIGINAL (unchopped) reads")
+    p.add_argument("predicts", type=Path, help="Prediction shard dir")
+    p.add_argument("--output-dir", type=Path, default=Path("."), help="Where stats_*.json / overlap_results_*.json land")
+    p.add_argument("--blat-cli", default=None, help="Path to the blat binary (enables BLAT categories)")
+    p.add_argument("--hg38-2bit", default=None, help="Reference genome .2bit for BLAT")
+    p.add_argument("--internal-threshold", type=float, default=0.9, help="Fraction of read length above which an interval counts as terminal")
+    p.add_argument("--overlap-threshold", type=float, default=0.5, help="Minimum softclip/interval overlap fraction")
+    p.add_argument("--min-mapping-quality", type=int, default=0, help="Skip alignments below this MAPQ")
+
+    tools = sub.add_parser("tools", help="Developer utilities (reference dev binaries)")
+    tsub = tools.add_subparsers(dest="tool", required=True)
+
+    t = tsub.add_parser("fq2fa", help="FASTQ -> FASTA on stdout")
+    t.add_argument("fq", type=Path)
+
+    t = tsub.add_parser("fqsearch", help="Search reads by id substring / length")
+    t.add_argument("fq", type=Path)
+    t.add_argument("--id", dest="id_substring", default=None)
+    t.add_argument("--min-len", type=int, default=None)
+    t.add_argument("--max-len", type=int, default=None)
+
+    t = tsub.add_parser("select", help="Select chopped reads by type annotation")
+    t.add_argument("fq", type=Path)
+    t.add_argument("--type", dest="chop_type", default="internal", choices=["terminal", "internal"])
+    t.add_argument("--output", "-o", type=Path, default=None)
+
+    t = tsub.add_parser("diff", help="Compare original vs chopped FASTQ lengths")
+    t.add_argument("original", type=Path)
+    t.add_argument("chopped", type=Path)
+
+    t = tsub.add_parser("chimericstat", help="Count primary mapped reads with SA tags")
+    t.add_argument("bam", type=Path)
+
+    t = tsub.add_parser("sa", help="SA-tag supplementary alignment histogram")
+    t.add_argument("bam", type=Path)
+
+    t = tsub.add_parser("scdiff", help="Compare softclips between two BAMs")
+    t.add_argument("original", type=Path)
+    t.add_argument("chopped", type=Path)
+
+    t = tsub.add_parser("replacefq", help="Replace records by id from another FASTQ")
+    t.add_argument("target", type=Path)
+    t.add_argument("replacement", type=Path)
+    t.add_argument("output", type=Path)
+
+    t = tsub.add_parser("replacebam", help="Swap internal-chopped records between BAMs")
+    t.add_argument("--dcbam", type=Path, required=True, help="DeepChopper-processed BAM")
+    t.add_argument("--dobam", type=Path, required=True, help="Original BAM")
+    t.add_argument("--output", "-o", type=Path, required=True)
+    t.add_argument("--threads", "-t", type=int, default=4)
+
+    t = tsub.add_parser("psl-top1", help="Top-1 identity summary of a PSL file")
+    t.add_argument("psl", type=Path)
+
+    t = tsub.add_parser("blat-predictions", help="Batch-BLAT predicted adapter seqs")
+    t.add_argument("predicts", type=Path, nargs="+", help="Prediction shard dirs/files")
+    t.add_argument("--prefix", "-p", default="")
+    t.add_argument("--sr", dest="selected_reads", type=Path, default=None)
+    t.add_argument("--fq", dest="fastq", type=Path, default=None)
+    t.add_argument("--smooth-window", "-s", type=int, default=21)
+    t.add_argument("--min-interval-size", "--mis", type=int, default=13)
+    t.add_argument("--approved-intervals", "-a", type=int, default=20)
+    t.add_argument("--max-process-intervals", "--mpi", type=int, default=4)
+    t.add_argument("--blat-cli", default=None)
+    t.add_argument("--hg38-2bit", default=None)
+
+    t = tsub.add_parser("encode-smoke", help="Tensor-encode a FASTQ and print shapes")
+    t.add_argument("fq", type=Path)
+    t.add_argument("--max-reads", type=int, default=100)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepchopper-tpu-torch",
@@ -116,6 +205,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_chop(sub)
     _add_train_eval(sub)
     _add_web(sub)
+    _add_host(sub)
     return parser
 
 
@@ -343,6 +433,102 @@ def cmd_web(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_encode(args: argparse.Namespace) -> int:
+    from .io.parquet import encode_fq_path_to_parquet, encode_fq_path_to_parquet_chunk
+
+    for path in args.paths:
+        if args.chunk:
+            out = encode_fq_path_to_parquet_chunk(path, chunk_size=args.chunk_size)
+        else:
+            out = encode_fq_path_to_parquet(path)
+        print(f"encoded {path} -> {out}")
+    return 0
+
+
+def cmd_stat(args: argparse.Namespace) -> int:
+    from .utils.stat import summary_record_len
+
+    lens = summary_record_len(args.path)
+    import numpy as np
+
+    arr = np.asarray(lens)
+    print(
+        f"{args.path}: n={arr.size} min={arr.min()} p50={int(np.median(arr))} "
+        f"mean={arr.mean():.1f} max={arr.max()}"
+    )
+    return 0
+
+
+def cmd_eval_bam(args: argparse.Namespace) -> int:
+    from .eval import OverlapOptions, collect_overlap_results_for_predicts
+
+    opts = OverlapOptions(
+        internal_threshold=args.internal_threshold,
+        overlap_threshold=args.overlap_threshold,
+        min_mapping_quality=args.min_mapping_quality,
+        blat_cli=args.blat_cli,
+        hg38_2bit=args.hg38_2bit,
+    )
+    results = collect_overlap_results_for_predicts(
+        args.bam, args.predicts, opts, output_dir=args.output_dir
+    )
+    for key in sorted(results):
+        print(f"{key}: {len(results[key])}")
+    return 0
+
+
+def cmd_tools(args: argparse.Namespace) -> int:
+    from . import tools
+
+    if args.tool == "fq2fa":
+        tools.fq2fa(args.fq)
+    elif args.tool == "fqsearch":
+        for rec in tools.fqsearch(args.fq, args.id_substring, args.min_len, args.max_len):
+            sys.stdout.buffer.write(rec.to_bytes())
+    elif args.tool == "select":
+        hits = tools.select_by_chop_type(args.fq, args.chop_type, args.output)
+        print(f"selected {len(hits)} {args.chop_type} records", file=sys.stderr)
+        if args.output is None:
+            for rec in hits:
+                sys.stdout.buffer.write(rec.to_bytes())
+    elif args.tool == "diff":
+        print(tools.diff_fq(args.original, args.chopped))
+    elif args.tool == "chimericstat":
+        s = tools.chimericstat(args.bam)
+        print(f"total={s.total} primary_mapped={s.primary_mapped} with_sa={s.with_sa} ratio={s.ratio:.4f}")
+    elif args.tool == "sa":
+        print(tools.sa_summary(args.bam))
+    elif args.tool == "scdiff":
+        print(tools.scdiff(args.original, args.chopped))
+    elif args.tool == "replacefq":
+        n = tools.replacefq(args.target, args.replacement, args.output)
+        print(f"replaced {n} records -> {args.output}")
+    elif args.tool == "replacebam":
+        n = tools.replacebam(args.dcbam, args.dobam, args.output, args.threads)
+        print(f"replaced {n} internal records -> {args.output}")
+    elif args.tool == "psl-top1":
+        print(tools.psl_top1_summary(args.psl))
+    elif args.tool == "blat-predictions":
+        from .eval.blat import blat_predictions
+
+        res = blat_predictions(
+            list(args.predicts),
+            prefix=args.prefix,
+            selected_reads=args.selected_reads,
+            fastq=args.fastq,
+            smooth_window_size=args.smooth_window,
+            min_interval_size=args.min_interval_size,
+            approved_interval_number=args.approved_intervals,
+            max_process_intervals=args.max_process_intervals,
+            blat_cli=args.blat_cli,
+            hg38_2bit=args.hg38_2bit,
+        )
+        print(res)
+    elif args.tool == "encode-smoke":
+        print(tools.encode_smoke(args.fq, args.max_reads))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -352,7 +538,17 @@ def main(argv: list[str] | None = None) -> int:
     from .utils.pylogger import suppress_warnings
 
     suppress_warnings(verbose=getattr(args, "verbose", False))
-    handlers = {"predict": cmd_predict, "chop": cmd_chop, "train": cmd_train, "eval": cmd_eval, "web": cmd_web}
+    handlers = {
+        "predict": cmd_predict,
+        "chop": cmd_chop,
+        "train": cmd_train,
+        "eval": cmd_eval,
+        "web": cmd_web,
+        "encode": cmd_encode,
+        "stat": cmd_stat,
+        "eval-bam": cmd_eval_bam,
+        "tools": cmd_tools,
+    }
     return handlers[args.command](args)
 
 

@@ -136,6 +136,30 @@ def split_records_by_intervals(
     ]
 
 
+def split_records_by_remove_interval(
+    seq: bytes | str,
+    record_id: str,
+    qual: bytes,
+    intervals: list[tuple[int, int]],
+    min_chop_read_length: int,
+    id_annotation: bool = True,
+) -> list[FastqRecord]:
+    """Remove adapters and always emit the kept parts (no passthrough rules).
+
+    The record-splitting variant `io.parquet.write_predicts` uses: parts are
+    annotated `|T` (one part before filtering) or `|I` (several) when
+    `id_annotation`, and the record is never re-emitted whole.
+    """
+    if isinstance(seq, str):
+        seq = seq.encode("ascii")
+    count_before, ids, seqs, quals = _split_parts(seq, record_id, qual, intervals, min_chop_read_length)
+    suffix = "T" if count_before == 1 else "I"
+    return [
+        FastqRecord(f"{rid}|{suffix}" if id_annotation else rid, rseq, rqual)
+        for rid, rseq, rqual in zip(ids, seqs, quals)
+    ]
+
+
 def split_records_by_remove_intervals(
     seq: bytes | str,
     record_id: str,

@@ -1,10 +1,10 @@
-"""Streaming FASTQ reader with compression sniffing.
+"""Streaming FASTQ IO with compression sniffing.
 
-Trimmed copy of `deepchopper_tpu/io/fastq.py`: magic-byte format detection,
-a reader over plain, gzip/BGZF, one-member zip, bz2, xz and zstd input (zstd
-through the system `libzstd.so.1`), and a record iterator whose record
-boundaries come from the native buffer scanner (`native.fq_index`) over large
-chunks, or from a per-line Python loop without it.
+Copy of `deepchopper_tpu/io/fastq.py`: magic-byte format detection, a reader
+over plain, gzip/BGZF, one-member zip, bz2, xz and zstd input (zstd through
+the system `libzstd.so.1`), a record iterator whose record boundaries come
+from the native buffer scanner (`native.fq_index`) over large chunks, or from
+a per-line Python loop without it, and plain or BGZF writers.
 """
 
 from __future__ import annotations
@@ -13,13 +13,15 @@ import bz2
 import gzip
 import io
 import lzma
+import sys
 import zipfile
-from collections.abc import Iterator
+from collections.abc import Iterable, Iterator
 from pathlib import Path
 
 import numpy as np
 
 from .. import native
+from .bgzf import open_bgzf_writer
 from .chop import FastqRecord
 
 _MAGICS: list[tuple[bytes, str]] = [
@@ -137,6 +139,11 @@ class StreamingFastqReader:
             fh.close()
 
 
+def read_fastq_records(path: str | Path) -> list[FastqRecord]:
+    """Every record of a FASTQ file, in a list."""
+    return list(StreamingFastqReader(path))
+
+
 def iter_fastq_chunks(path: str | Path, chunk_size: int) -> Iterator[list[FastqRecord]]:
     """Stream records in lists of `chunk_size`."""
     chunk: list[FastqRecord] = []
@@ -147,3 +154,40 @@ def iter_fastq_chunks(path: str | Path, chunk_size: int) -> Iterator[list[FastqR
             chunk = []
     if chunk:
         yield chunk
+
+
+def write_fq(records: Iterable[FastqRecord], path: str | Path | None = None) -> None:
+    """Write records as plain FASTQ to `path`, or to stdout when None."""
+    if path is None:
+        for rec in records:
+            sys.stdout.buffer.write(rec.to_bytes())
+        return
+    with open(path, "wb") as fh:
+        for rec in records:
+            fh.write(rec.to_bytes())
+
+
+def write_fq_parallel(records: Iterable[FastqRecord], path: str | Path, threads: int = 4) -> None:
+    """Write records as BGZF-compressed FASTQ, blocks compressed on `threads`."""
+    with open_bgzf_writer(path, threads=threads) as fh:
+        for rec in records:
+            fh.write(rec.to_bytes())
+
+
+def write_fq_auto(records: Iterable[FastqRecord], path: str | Path, threads: int = 4) -> None:
+    """Write BGZF FASTQ to a `.gz`/`.bgz` path, plain FASTQ otherwise."""
+    if str(path).endswith((".gz", ".bgz")):
+        write_fq_parallel(records, path, threads)
+    else:
+        write_fq(records, path)
+
+
+def convert_multiple_fqs_to_one_fq(paths: list[str | Path], result_path: str | Path, parallel: bool = True) -> None:
+    """Concatenate the records of several FASTQs into one (BGZF for a `.gz`
+    or `.bgz` result)."""
+
+    def _iter_all() -> Iterator[FastqRecord]:
+        for p in paths:
+            yield from StreamingFastqReader(p)
+
+    write_fq_auto(_iter_all(), result_path, threads=4 if parallel else 1)

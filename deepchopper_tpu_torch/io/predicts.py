@@ -31,12 +31,30 @@ class Predict:
     seq: str
     id: str
     is_truncated: bool
+    qual: str | None = None
+
+    def seq_len(self) -> int:
+        return len(self.seq)
+
+    def qual_array(self) -> np.ndarray:
+        if self.qual is None:
+            return np.zeros(0, dtype=np.uint8)
+        return np.frombuffer(self.qual.encode("ascii"), dtype=np.uint8) - default.QUAL_OFFSET
+
+    def prediction_region(self) -> list[tuple[int, int]]:
+        return get_label_region(self.prediction)
+
+    def smooth_label(self, window_size: int) -> np.ndarray:
+        return majority_voting(self.prediction, window_size)
+
+    def smooth_prediction(self, window_size: int) -> list[tuple[int, int]]:
+        return get_label_region(self.smooth_label(window_size))
 
     def smooth_and_select_intervals(
         self, smooth_window_size: int, min_interval_size: int, approved_interval_number: int
     ) -> list[tuple[int, int]]:
         """Smooth -> region-extract -> min-size filter -> count gate."""
-        regions = get_label_region(majority_voting(self.prediction, smooth_window_size))
+        regions = self.smooth_prediction(smooth_window_size)
         intervals = [(s, e) for (s, e) in regions if e - s >= min_interval_size]
         if len(intervals) > approved_interval_number:
             return []

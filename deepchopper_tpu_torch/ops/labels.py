@@ -1,6 +1,6 @@
 """Label ops: target parsing and vectorization, region extraction, smoothing.
 
-Trimmed copy of `deepchopper_tpu/ops/labels.py`. Reference behaviours that
+Copy of `deepchopper_tpu/ops/labels.py`. Reference behaviours that
 look like quirks are load-bearing for chop output parity and are kept:
 
 * `parse_target_from_id` degrades to [(0, 0)] on malformed ids instead of
@@ -45,6 +45,15 @@ def parse_target_from_id(src: str | bytes) -> list[tuple[int, int]]:
             return [(0, 0)]
         result.append((int(m.group(1)), int(m.group(2))))
     return result
+
+
+def vectorize_target(start: int, end: int, length: int) -> np.ndarray:
+    """[start, end) -> binary label vector."""
+    if start > end or end > length:
+        raise TargetRegionInvalid(f"invalid target region {start}:{end} for length {length}")
+    out = np.zeros(length, dtype=np.int64)
+    out[start:end] = 1
+    return out
 
 
 def vectorize_targets(targets, length: int) -> np.ndarray:
@@ -150,3 +159,19 @@ def smooth_label_region(
     if len(results) > approved_interval_number:
         return []
     return results
+
+
+def summary_predict(
+    predictions,
+    labels,
+    ignore_label: int = default.IGNORE_LABEL,
+) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """Drop the positions whose label equals `ignore_label`, row by row."""
+    preds_out: list[np.ndarray] = []
+    labels_out: list[np.ndarray] = []
+    for pred, lab in zip(predictions, labels):
+        pred, lab = np.asarray(pred), np.asarray(lab)
+        keep = lab != ignore_label
+        preds_out.append(pred[keep])
+        labels_out.append(lab[keep])
+    return preds_out, labels_out

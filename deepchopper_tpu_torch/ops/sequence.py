@@ -1,7 +1,7 @@
-"""Base-sequence ops: normalization and tokenization lookup tables.
+"""Base-sequence ops: normalization, tokenization lookup tables, complement.
 
-Trimmed copy of `deepchopper_tpu/ops/sequence.py`: tokenization is a uint8
-table gather over the raw read bytes, detokenization its inverse.
+Copy of `deepchopper_tpu/ops/sequence.py`: tokenization is a uint8 table
+gather over the raw read bytes, detokenization its inverse.
 """
 
 from __future__ import annotations
@@ -11,18 +11,24 @@ import numpy as np
 from .. import default
 
 
-def _build_normalize_lut() -> np.ndarray:
-    """ASCII -> normalized-base LUT: uppercase, U->T, everything else N."""
+def _build_normalize_lut(iupac: bool) -> np.ndarray:
+    """ASCII -> normalized-base LUT: uppercase, U->T, everything else N (the
+    IUPAC ambiguity codes kept, uppercased, when `iupac`)."""
     lut = np.full(256, ord("N"), dtype=np.uint8)
     for ch in "ACGT":
         lut[ord(ch)] = ord(ch)
         lut[ord(ch.lower())] = ord(ch)
     for ch in ("U", "u"):
         lut[ord(ch)] = ord("T")
+    if iupac:
+        for ch in "BDHKMRSVWY":
+            lut[ord(ch)] = ord(ch)
+            lut[ord(ch.lower())] = ord(ch)
     return lut
 
 
-_NORM_LUT = _build_normalize_lut()
+_NORM_LUT = _build_normalize_lut(iupac=False)
+_NORM_LUT_IUPAC = _build_normalize_lut(iupac=True)
 
 
 def _build_token_lut() -> np.ndarray:
@@ -60,6 +66,17 @@ def _build_detoken_lut() -> np.ndarray:
 _DETOKEN_LUT = _build_detoken_lut()
 
 
+def _build_revcomp_lut() -> np.ndarray:
+    lut = np.arange(256, dtype=np.uint8)
+    pairs = {"A": "T", "T": "A", "C": "G", "G": "C", "a": "t", "t": "a", "c": "g", "g": "c"}
+    for src, dst in pairs.items():
+        lut[ord(src)] = ord(dst)
+    return lut
+
+
+_REVCOMP_LUT = _build_revcomp_lut()
+
+
 def seq_to_bytes(seq: str | bytes | np.ndarray) -> np.ndarray:
     """Coerce a sequence to a uint8 byte array (zero-copy for bytes)."""
     if isinstance(seq, np.ndarray):
@@ -69,14 +86,19 @@ def seq_to_bytes(seq: str | bytes | np.ndarray) -> np.ndarray:
     return np.frombuffer(seq, dtype=np.uint8)
 
 
-def normalize_seq_bytes(seq: np.ndarray) -> np.ndarray:
+def normalize_seq_bytes(seq: np.ndarray, iupac: bool = False) -> np.ndarray:
     """Uppercase and map non-ACGT characters to N (U/u -> T) over uint8 bytes."""
-    return _NORM_LUT[seq]
+    return (_NORM_LUT_IUPAC if iupac else _NORM_LUT)[seq]
 
 
-def normalize_seq(seq: str | bytes) -> str:
+def normalize_seq(seq: str | bytes, iupac: bool = False) -> str:
     """Uppercase and map non-ACGT(N) characters to N; U/u map to T."""
-    return normalize_seq_bytes(seq_to_bytes(seq)).tobytes().decode("ascii")
+    return normalize_seq_bytes(seq_to_bytes(seq), iupac).tobytes().decode("ascii")
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse complement; bytes other than ACGT/acgt are kept as they are."""
+    return _REVCOMP_LUT[seq_to_bytes(seq)][::-1].tobytes().decode("ascii")
 
 
 def tokenize_bases(seq: str | bytes | np.ndarray) -> np.ndarray:
@@ -89,6 +111,11 @@ def detokenize_bases(ids: np.ndarray) -> str:
     to 'N'."""
     clipped = np.clip(np.asarray(ids), 0, 255).astype(np.int64)
     return _DETOKEN_LUT[clipped].tobytes().decode("ascii")
+
+
+def id_list2seq(id_list) -> str:
+    """The reference's name for `detokenize_bases`."""
+    return detokenize_bases(np.asarray(id_list))
 
 
 def ascii_list2str(ascii_list) -> str:

@@ -276,10 +276,14 @@ def test_datamodule_batches_equal_jax(tmp_path):
     assert sum(len(b.read_ids) for b in DataModule(**kw).val_batches()) == 5
 
 
-def test_datamodule_refuses_parquet(tmp_path):
+def test_datamodule_refuses_parquet(tmp_path, monkeypatch):
+    """Where pyarrow cannot be imported, a parquet source raises an
+    ImportError that names it (the FASTQ sources above need no pyarrow)."""
     from deepchopper_tpu_torch.data.parquet_module import DataModule
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    monkeypatch.setitem(sys.modules, "pyarrow.parquet", None)
+    with pytest.raises(ImportError, match="pyarrow"):
         list(DataModule(train_data_path=str(tmp_path / "train.parquet")).train_batches())
 
 
