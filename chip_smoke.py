@@ -109,15 +109,33 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
    backward with the kernels and with the plain version swapped in; every
    gradient leaf within a limit of its max, and a faulty backward must fail
    it (train_parity).
-6. Drives `train` (the CLI's parser and code path) on each model, Hyena on
-   each route, at full width: one epoch over ~300 labelled reads with the benchmark's length mix
-   and reads in the 24576 and 32768 buckets, a val pass, test on the best
-   checkpoint; checks finite losses, the checkpoints and the launches per
-   batch, then `predict --checkpoint <best>` on a few reads. Caduceus trains
-   at 2^16 tokens per batch (its activations at 2^17 outgrow the card).
-   Then overfits one full Hyena batch (loss below half its first value
-   within 100 steps) and times the train step of each model: ms/step,
-   tokens/s and peak memory.
+6. Drives `train` (the CLI's parser and code path) on Hyena on each route,
+   at full width: one epoch over ~300 labelled reads with the benchmark's
+   length mix and reads in the 24576 and 32768 buckets, a val pass, test on
+   the best checkpoint; checks finite losses, the checkpoints and the
+   launches per batch, then `predict --checkpoint <best>` on a few reads.
+   Then the Caduceus flagship at its full scale (phase_caduceus_scale), at
+   the JAX recipe's 2^17 tokens a train batch and the configs' 131072-token
+   window, the backbone recomputing the fewest blocks that fit the card in
+   each train step's backward: `predict --max-length 131072` over the
+   benchmark's reads and six long ones (40000-140000 bases, the last
+   truncated and flagged), the 131072 bucket dispatched, held to the plain
+   scan at its widest batch (f32 and bf16 rules with their control) and its
+   CUDA graphs to the eager step (with the graphs' memory); `--fused-chop`
+   at that window byte-identical to `predict` + `chop`, with a control;
+   `train` through the CLI with no tokens_per_batch override at
+   data.max_length 32768 and 131072, the long reads in the training split,
+   scan_fwd counted as 32 + 2k a train batch of k recomputed blocks;
+   gradients of every block recomputed bitwise those of none at (2, 32768)
+   in float32, but for the embedding table, which two runs without
+   recompute do not give bitwise either (within 1e-5 of its max|grad|;
+   control: the scans' forward on the plain version); at (1, 131072), on the first two
+   layers, kernels against the plain scan with both recomputing (each leaf
+   within 3e-2 of its max|grad|; control: each 32-step chunk restarted);
+   and the train step timed at (64, 1024), (2, 32768), (128, 1024),
+   (4, 32768) and (1, 131072): k, ms/step, tokens/s and peak memory, below
+   the card's. Then overfits one full Hyena batch (loss below half its
+   first value within 100 steps) and times Hyena's train step.
 7. The transformer and CNN baselines, the sweep, the model folder and the
    web core (phase_baselines): `predict --random-init` through the CLI on
    `transformer` and `cnn` at full width over the phase-3 reads (every read
@@ -165,11 +183,16 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TOKENS_PER_BATCH = 1 << 17
-# Caduceus keeps ~0.73 MB of activations per token for its backward (23.95 GB
-# at 2^15 tokens, PERF.md): 2^17 tokens would outgrow the card's 80 GB, 2^16
-# fits with room to spare.
-CADUCEUS_TRAIN_TOKENS = 1 << 16
 N_READS = 300
+# Caduceus at its full scale (phase_caduceus_scale): the window its configs
+# are built for, and long reads for it, one past it (truncated and flagged).
+# A Caduceus block keeps 44460 B a token for its backward in bf16, so a
+# train step at the JAX recipe's 2^17 tokens needs 95.06 GB with none
+# recomputed; the backbone recomputes its first 7 blocks there, for a peak
+# of 55.2-55.4 GB allocated on an H100 80GB HBM3 (scripts/torch_caduceus_memory.py
+# and this script; PERF.md, section 6).
+SCALE_MAX_LENGTH = 131072
+LONG_READS = (40000, 65000, 90000, 110000, 131000, 140000)
 
 
 class SmokeFailure(RuntimeError):
@@ -701,23 +724,32 @@ def _shard_read_names(ids) -> list[str]:
     return [bytes(int(c) for c in row[2 : 2 + row[0]]).decode("ascii") for row in ids]
 
 
-def bench_reads(work: Path, n: int = N_READS) -> Path:
-    """n reads with the benchmark's length mix, one forced into each of the
+def bench_lengths(n: int = N_READS):
+    """n read lengths of the benchmark's mix, one forced into each of the
     24576 and 32768 buckets."""
-    from deepchopper_tpu_torch.data.synth import read_lengths, synth_fastq
+    from deepchopper_tpu_torch.data.synth import read_lengths
 
     lengths = read_lengths(n, seed=0)
     if not ((lengths >= 16400) & (lengths <= 24000)).any():
         lengths[0] = 20000
     if not ((lengths >= 24600) & (lengths <= 32000)).any():
         lengths[1] = 30000
-    return synth_fastq(work / "reads.fq", lengths, seed=0)
+    return lengths
 
 
-def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: dict[str, int], tag: str = "") -> dict:
-    """`predict --random-init` through the CLI on `model` over the reads of
-    `fq` into `fq.parent / (model + tag) / "out"`; the shards must hold
-    every read with finite logits in the 24576 and 32768 buckets, and each
+def bench_reads(work: Path, n: int = N_READS) -> Path:
+    """n reads of `bench_lengths`."""
+    from deepchopper_tpu_torch.data.synth import synth_fastq
+
+    return synth_fastq(work / "reads.fq", bench_lengths(n), seed=0)
+
+
+def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: dict[str, int], tag: str = "",
+                  extra: tuple = (), n_reads: int = N_READS, wide: tuple = (24576, 32768)) -> dict:  # fmt: skip
+    """`predict --random-init` (and the CLI arguments `extra`) through the
+    CLI on `model` over the `n_reads` reads of `fq` into
+    `fq.parent / (model + tag) / "out"`; the shards must hold every read
+    with finite logits in the buckets `wide` among others, and each
     kernel k of per_layer must have launched per_layer[k] x n_layer times per
     dispatch, replays of the engine's CUDA graphs included (a capture's eager
     run is its first dispatch's own), plus as many per warm run (none here);
@@ -732,7 +764,7 @@ def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: di
 
     work = fq.parent / (model + tag)
     parser = cli.build_parser()
-    base = ["predict", str(fq), "--model", model, "--random-init"]
+    base = ["predict", str(fq), "--model", model, "--random-init", *extra]
     cli.predict(parser.parse_args([*base, "-o", str(work / "warm"), "--limit-batches", "1"]))
     torch.cuda.synchronize()
 
@@ -755,10 +787,10 @@ def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: di
             raise SmokeFailure(f"{p.name}: prediction {pred.dtype} {pred.shape} finite={np.isfinite(pred).all()}")
         names += _shard_read_names(s["id"])
         widths.add(s["seq"].shape[1])
-    want = {f"bench_read_{i}" for i in range(N_READS)}
-    if len(names) != N_READS or set(names) != want:
-        raise SmokeFailure(f"{model}: shards hold {len(names)} reads ({len(set(names) & want)} of {N_READS} expected)")
-    if not {24576, 32768} <= widths:
+    want = {f"bench_read_{i}" for i in range(n_reads)}
+    if len(names) != n_reads or set(names) != want:
+        raise SmokeFailure(f"{model}: shards hold {len(names)} reads ({len(set(names) & want)} of {n_reads} expected)")
+    if not set(wide) <= widths:
         raise SmokeFailure(f"{model}: large buckets missing from the run: widths {sorted(widths)}")
     runs = stats.dispatches + stats.warm_runs  # a lazy capture's eager run is its first dispatch's own
     want = {k: n * n_layer * runs for k, n in per_layer.items()}
@@ -789,7 +821,7 @@ def phase_predict(card: str, model: str, fq: Path, counts: Counts, per_layer: di
         now - was for now, was in zip((stats.reads, stats.tokens, stats.elapsed_s, stats.dispatches, stats.captures,
                                        stats.warm_runs), before))  # fmt: skip
     want = {k: n * n_layer * (dispatches + warm_runs) for k, n in per_layer.items()}
-    if {k: again.get(k) for k in want} != want or reads != N_READS:
+    if {k: again.get(k) for k in want} != want or reads != n_reads:
         raise SmokeFailure(f"{model}{tag} second pass: launches {again} != {want}, {reads} reads")
     print(f"predict {model}{tag} second pass on the same engine, on {card}: {reads / elapsed:.1f} reads/s, "
           f"{tokens / elapsed:.0f} tokens/s ({elapsed:.3f} s; {dispatches} dispatches, {captures} new captures)")
@@ -867,9 +899,10 @@ def swapped_scan(fn):
 
 
 def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain, second: tuple, bf16_control: tuple,
-                        f32_control: tuple, f32_tol: float, tie_band: float,
-                        vs_default: bool = False) -> None:  # fmt: skip
-    """Re-run the widest and the fullest batch of the main path with the
+                        f32_control: tuple, f32_tol: float, tie_band: float, vs_default: bool = False,
+                        max_length: int = 32768, widest_only: bool = False) -> None:  # fmt: skip
+    """Re-run the widest and the fullest batch (or the widest alone) of the
+    main path, as `predict --max-length max_length` batched it, with the
     plain version of the model's kernel on the card (`swap(fn)` routes the
     model through fn), through the engine's own step, and hold the kernel's
     logits to it. Each rule is also run on a control that must fail it, so
@@ -893,6 +926,7 @@ def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain,
     import numpy as np
     import torch
 
+    from deepchopper_tpu_torch.data.bucketing import default_buckets
     from deepchopper_tpu_torch.data.fastq_module import iter_batches
     from deepchopper_tpu_torch.infer.engine import PredictEngine
     from deepchopper_tpu_torch.models.registry import DeepChopper
@@ -906,11 +940,12 @@ def check_against_plain(fq: Path, shard_dir: Path, model_name: str, swap, plain,
     engine, engine32 = PredictEngine(model, device="cuda"), PredictEngine(model32, device="cuda")
 
     # The CLI's batching is deterministic: batch i was written as shard 0_i.
-    batches = list(iter_batches(fq))
+    batches = list(iter_batches(fq, max_length=max_length, buckets=default_buckets(max_length)))
     n_shards = len(list(shard_dir.glob("*.npz")))
     if len(batches) != n_shards:
         raise SmokeFailure(f"re-batching gave {len(batches)} batches for {n_shards} shards")
-    picks = sorted({max(range(n_shards), key=lambda i: batches[i].input_ids.shape[k]) for k in (0, 1)})
+    picks = sorted({max(range(n_shards), key=lambda i: batches[i].input_ids.shape[k]) for k in ((1,) if widest_only
+                                                                                                else (0, 1))})  # fmt: skip
     bf16_runs = ("kernel", second[0], bf16_control[0])
     agree = {name: np.zeros(4, dtype=np.int64) for name in bf16_runs}  # valid, agree, decided, decided-agree
     f32_rel = {"kernel": 0.0, second[0]: 0.0, f32_control[0]: 0.0}
@@ -1009,31 +1044,36 @@ def check_caduceus_against_plain(fq: Path, shard_dir: Path) -> None:
                         CADUCEUS_F32_LOGIT_TOL, CADUCEUS_TIE_BAND)  # fmt: skip
 
 
-def check_graph_replay(fq: Path, model_name: str) -> None:
+def check_graph_replay(fq: Path, model_name: str, max_length: int = 32768, widest_only: bool = False) -> None:
     """Hold the engine's CUDA graphs to its eager `step`, in bfloat16 and
-    float32, at every dispatch of the widest and of the fullest batch of the
-    main path's batching: each graph's output must equal, bitwise, the eager
-    step on the same padded (rows, width) inputs (the same kernels on the
-    same inputs). Control: the graph replayed without the copy-in of the next
-    inputs (the tokens shifted by one) must fail the rule."""
+    float32, at every dispatch of the widest and of the fullest batch (or
+    the widest alone) of the main path's batching at `max_length`: each
+    graph's output must equal, bitwise, the eager step on the same padded
+    (rows, width) inputs (the same kernels on the same inputs). Control: the
+    graph replayed without the copy-in of the next inputs (the tokens
+    shifted by one) must fail the rule. Prints the device memory the
+    engine's graphs hold, allocated and reserved, after each dtype's."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from deepchopper_tpu_torch import default
+    from deepchopper_tpu_torch.data.bucketing import default_buckets
     from deepchopper_tpu_torch.data.fastq_module import iter_batches
     from deepchopper_tpu_torch.infer.engine import PredictEngine, _pad_rows
     from deepchopper_tpu_torch.models.registry import DeepChopper
 
-    batches = list(iter_batches(fq))
-    picks = sorted({max(range(len(batches)), key=lambda i: batches[i].input_ids.shape[k]) for k in (0, 1)})
+    batches = list(iter_batches(fq, max_length=max_length, buckets=default_buckets(max_length)))
+    axes = (1,) if widest_only else (0, 1)
+    picks = sorted({max(range(len(batches)), key=lambda i: batches[i].input_ids.shape[k]) for k in axes})
     base = DeepChopper.new(model_name, seed=0, device="cuda")
     for dtype in ("bfloat16", "float32"):
         model = type(base)(dataclasses.replace(base.backbone_config, compute_dtype=dtype),
                            dataclasses.replace(base.head_config, compute_dtype=dtype)).cuda()  # fmt: skip
         model.load_state_dict(base.state_dict())
-        engine = PredictEngine(model, device="cuda")
+        engine = PredictEngine(model, max_length=max_length, device="cuda")
+        allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         for i in picks:
             batch = batches[i]
             b, w = batch.input_ids.shape
@@ -1056,6 +1096,10 @@ def check_graph_replay(fq: Path, model_name: str) -> None:
                     raise SmokeFailure(f"{model_name} {dtype}: graph replay at {(target, w)} differs from step by {err:.3e}")
                 if not stale_err.any():
                     raise SmokeFailure(f"{model_name} {dtype}: the replay rule passes its control at {(target, w)}")
+        del got, want, stale, stale_err
+        print(f"  graph memory, {model_name} {dtype}: {len(engine._graphs)} graphs {sorted(key[:2] for key in engine._graphs)} hold "
+              f"{(torch.cuda.memory_allocated() - allocated) / 1e9:.3f} GB allocated, "
+              f"{(torch.cuda.memory_reserved() - reserved) / 1e9:.3f} GB reserved")  # fmt: skip
         del engine, model
 
 
@@ -1190,18 +1234,21 @@ def training_batch(batch: int, width: int, seed: int) -> dict:
 
 
 def train_parity(model_name: str, swap, counts: Counts, kernel_launches: dict, runs: dict, control: str,
-                 shapes: tuple, tol: float) -> None:  # fmt: skip
+                 shapes: tuple, tol: float, n_layer: int | None = None, recompute: int | None = None) -> None:  # fmt: skip
     """One forward and backward of `model_name` at compute_dtype float32,
     same random-init weights, on each batch shape: with the kernels (which
     must launch `kernel_launches`), and with each of `runs` (name -> plain
     function, swapped in by `swap`; "plain" is the yardstick). Every
     parameter's gradient within `tol` of that leaf's max|grad| of the plain
-    run; the run named `control` must fail that rule."""
+    run; the run named `control` must fail that rule. `n_layer` cuts the
+    depth; `recompute` forces a Caduceus backbone's recomputed blocks."""
     import torch
 
     from deepchopper_tpu_torch.train.loss import continuous_interval_loss
 
-    model = f32_model(model_name)
+    model = f32_model(model_name, n_layer)
+    if recompute is not None:
+        model.backbone._recompute = recompute
     runs = {"kernel": None, **runs}
     worst = {name: 0.0 for name in runs if name != "plain"}
     for batch_shape, seed in shapes:
@@ -1260,16 +1307,20 @@ def phase_train_parity() -> None:
                  "control: carry dropped", (((16, 1024), 1), ((1, 8192), 2)), CADUCEUS_GRAD_TOL)  # fmt: skip
 
 
-def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: tuple = (),
-                tag: str = "") -> dict[str, int]:  # fmt: skip
+def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: tuple = (), tag: str = "",
+                long_reads: tuple = (), wide: tuple = (24576, 32768), per_recomputed: dict | None = None,
+                ) -> dict[str, int]:  # fmt: skip
     """`train` through the CLI's parser and code path on `model` at full
-    width (random init, seed 0), one epoch over ~300 labelled reads with the
-    benchmark's length mix, two of them forced into the 24576 and 32768
-    buckets of the training split; one val pass; test on the best
-    checkpoint. per_batch = {kernel: (launches per train batch, per eval
-    batch)}, (0, 0) for a kernel the route must not reach. Then `predict
-    --checkpoint <best>` on a few reads. Returns the kernels' launches in the
-    train run."""
+    width (random init, seed 0) with the CLI arguments `extra`, one epoch
+    over ~300 labelled reads with the benchmark's length mix, two of them
+    forced into the 24576 and 32768 buckets of the training split and
+    `long_reads` more in it; the batches must reach the buckets `wide`; one
+    val pass; test on the best checkpoint. per_batch = {kernel: (launches
+    per train batch, per eval batch)}, (0, 0) for a kernel the route must
+    not reach; per_recomputed = {kernel: launches per block a Caduceus
+    train step recomputes}, each step's blocks read from the trained
+    model's choice for its (rows, width). Then `predict --checkpoint <best>`
+    on a few reads. Returns the kernels' launches in the train run."""
     import csv
     import dataclasses
 
@@ -1285,7 +1336,8 @@ def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: t
     work.mkdir(parents=True)
     lengths = read_lengths(N_READS, seed=0)
     train_rows = ratio_split(N_READS, 0.8, 0.1, seed=0).train
-    lengths[train_rows[0]], lengths[train_rows[1]] = 20000, 30000
+    for row, n in zip(train_rows, (20000, 30000, *long_reads)):
+        lengths[row] = n
     fq = synth_labelled_fastq(work / "reads.fq", lengths, seed=0)
     # One rank: the launches are counted in this process (None would start a
     # rank a card on a machine with several).
@@ -1297,23 +1349,28 @@ def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: t
     n_train, n_eval = len(train_batches), len(list(dm.val_batches())) + len(list(dm.test_batches()))
     widths = sorted({b.input_ids.shape[1] for b in train_batches})
     tokens = sum(b.input_ids.size for b in train_batches)
-    if not {24576, 32768} <= set(widths):
+    if not set(wide) <= set(widths):
         raise SmokeFailure(f"large buckets missing from the training batches: widths {widths}")
 
     counts.reset()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = cli.main(argv)
+    with recorded_models() as made:
+        rc = cli.main(argv)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = counts.read()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb, reserved_gb = torch.cuda.max_memory_allocated() / 1e9, torch.cuda.max_memory_reserved() / 1e9
     if rc != 0:
         raise SmokeFailure(f"train {model}{tag} exited {rc}")
-    want = {k: tr * n_train + ev * n_eval for k, (tr, ev) in per_batch.items()}
+    chosen = getattr(made[0].backbone, "_recompute_k", {})
+    recomputed = sum(chosen.get(b.input_ids.shape, 0) for b in train_batches)
+    want = {k: tr * n_train + ev * n_eval + (per_recomputed or {}).get(k, 0) * recomputed
+            for k, (tr, ev) in per_batch.items()}  # fmt: skip
     if launches != want or not all(launches[k] for k, n in per_batch.items() if any(n)):
         raise SmokeFailure(f"train {model}{tag} launches {launches} != {want} ({n_train} train, "
-                           f"{n_eval} val+test batches)")  # fmt: skip
+                           f"{n_eval} val+test batches, {recomputed} blocks recomputed)")  # fmt: skip
     out = work / "runs" / "train"
     rows = list(csv.DictReader(open(out / "metrics.csv")))
     if len(rows) != 1 or not all(math.isfinite(float(rows[0][k])) for k in ("train/loss", "val/loss")):
@@ -1329,8 +1386,10 @@ def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: t
         f"batches, {elapsed:.1f} s with set-up and test-on-best; train/loss {float(rows[0]['train/loss']):.4f}, "
         f"val/loss {float(rows[0]['val/loss']):.4f}, test {test}"
     )
-    print(f"  launches {launches} (per train batch, per eval batch: {per_batch})")
-    print(f"  peak device memory of the train run on {card}: {peak_gb:.2f} GB")
+    print(f"  launches {launches} (per train batch, per eval batch: {per_batch}"
+          + (f"; per recomputed block {per_recomputed}, {recomputed} blocks recomputed over the {n_train} steps, "
+             f"blocks by (rows, width): {chosen}" if per_recomputed else "") + ")")  # fmt: skip
+    print(f"  peak device memory of the train run on {card}: {peak_gb:.2f} GB allocated, {reserved_gb:.2f} GB reserved")
 
     few = synth_labelled_fastq(work / "few.fq", lengths[:8], seed=1)
     stats = cli.predict(cli.build_parser().parse_args(
@@ -1340,6 +1399,253 @@ def phase_train(card: str, model: str, counts: Counts, per_batch: dict, extra: t
     if stats.reads != 8 or not all(np.isfinite(np.load(s)["prediction"]).all() for s in shards):
         raise SmokeFailure(f"predict --checkpoint {best[-1].name}: {stats.reads} reads")
     print(f"  predict --checkpoint {best[-1].name}: {stats.reads} reads, finite logits")
+    return launches
+
+
+# -- Caduceus at its full scale ------------------------------------------------------------
+
+# Caduceus train-step shapes timed: 2^16 tokens (no block recomputed), then the
+# JAX recipe's 2^17, the last at the configs' window.
+CADUCEUS_TIMED = ((64, 1024), (2, 32768), (128, 1024), (4, 32768), (1, SCALE_MAX_LENGTH))
+
+
+def scale_reads(work: Path) -> Path:
+    """The benchmark's reads and LONG_READS after them, `bench_read_0` to
+    `bench_read_305`."""
+    import numpy as np
+
+    from deepchopper_tpu_torch.data.synth import synth_fastq
+
+    return synth_fastq(work / "reads_long.fq", np.array([*bench_lengths(), *LONG_READS]), seed=0)
+
+
+def scan_bwd_chunks_restarted(u, delta, A, Bp, Cp, D, dy, reverse=False, chunk=None):
+    """A faulty backward: every CKPT_CHUNK-step chunk (the kernels' chunk)
+    walked as a scan of its own from a zero state, so the state and the
+    cotangent carried across chunk boundaries are dropped; otherwise the
+    plain backward. Vectorised over the chunks (one row each)."""
+    from deepchopper_tpu_torch.ops import scan
+
+    batch, seq_len, _d_in = u.shape
+    step = scan.CKPT_CHUNK
+    if seq_len % step:
+        raise SmokeFailure(f"scan_bwd_chunks_restarted takes whole {step}-step chunks, not L = {seq_len}")
+
+    def rows(t):
+        return t.reshape(batch * seq_len // step, step, t.shape[-1])
+
+    du, ddelta, d_a, dbp, dcp, d_d = scan.scan_bwd_reference(rows(u), rows(delta), A, rows(Bp), rows(Cp), D, rows(dy),
+                                                              reverse, chunk=4)  # fmt: skip
+    return (du.reshape(u.shape), ddelta.reshape(u.shape), d_a, dbp.reshape(Bp.shape), dcp.reshape(Cp.shape), d_d)
+
+
+# f32 train step, all blocks recomputed against none: every leaf bitwise that two
+# runs with none recomputed give bitwise; a leaf they do not, within this share
+# of its max|grad|. Only the embedding table is such a leaf: its CUDA backward
+# sums the 2^16 positions' gradients into it in an order that varies from run
+# to run (at (2, 32768): 9.424e-07 between two runs without recompute,
+# 1.047e-06 with it; f32 sums of 2^16 terms in a random order spread by about
+# 2^8 * 2^-24 = 1.5e-5). Its control differs in every leaf (PERF.md).
+RECOMPUTE_GRAD_TOL = 1e-5
+
+
+def plain_forward_kernel_backward():
+    """A scan whose forward is the plain version and whose backward is the
+    kernels': y differs from the kernel's in rounding alone, as a recompute
+    that did not reproduce its forward exactly would."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+
+    class PlainForward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, u, delta, A, Bp, Cp, D, reverse):
+            ctx.save_for_backward(u, delta, A, Bp, Cp, D)
+            ctx.reverse = reverse
+            return scan.selective_scan_reference(u, delta, A, Bp, Cp, D, reverse)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return (*scan.scan_bwd_kernels(*ctx.saved_tensors, dy, ctx.reverse), None)
+
+    def fn(u, delta, A, Bp, Cp, D, reverse=False):
+        return PlainForward.apply(u, delta, A, Bp, Cp, D, reverse)
+
+    return fn
+
+
+def recompute_parity() -> None:
+    """The flagship at float32 on a (2, 32768) batch, one forward and
+    backward with the kernels: none recomputed, twice (the card's own
+    run-to-run spread), and all 16 blocks recomputed, scan_fwd launched 2
+    more times a recomputed block. The loss must be bitwise equal; every
+    gradient leaf bitwise equal where the two runs with none recomputed
+    are, and within RECOMPUTE_GRAD_TOL of its max|grad| where they are not.
+    Control: the scans' forward on the plain version (their backward the
+    kernels'), none recomputed, must fail the rule. Prints, for each run,
+    the leaves that are not bitwise equal."""
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+    from deepchopper_tpu_torch.train.loss import continuous_interval_loss
+
+    model = f32_model(CADUCEUS)
+    n_layer = model.backbone_config.n_layer
+    batch = training_batch(2, 32768, seed=3)
+    counts = Counts(scan)
+    runs = {}
+    scans = 2 * n_layer
+    for name, k, fn, fwd in (("none recomputed", 0, None, scans), ("none recomputed, again", 0, None, scans),
+                             ("all recomputed", n_layer, None, scans + 2 * n_layer),
+                             ("control: plain forward scan, none recomputed", 0, plain_forward_kernel_backward(), 0)):  # fmt: skip
+        model.backbone._recompute = k
+        model.zero_grad(set_to_none=True)
+        counts.reset()
+        with swapped_scan(fn) if fn is not None else contextlib.nullcontext():
+            loss = continuous_interval_loss(model(batch["input_ids"], batch["input_quals"]), batch["labels"])
+            loss.backward()
+        torch.cuda.synchronize()
+        want = {"scan_fwd": fwd, "scan_ckpt": scans, "scan_bwd": scans}
+        if counts.read() != want:
+            raise SmokeFailure(f"recompute parity, {name}: launches {counts.read()} != {want}")
+        runs[name] = (loss.detach(), {key: p.grad.detach().clone() for key, p in model.named_parameters()})
+    ref_loss, ref = runs.pop("none recomputed")
+    spread = {key for key, g in runs["none recomputed, again"][1].items() if not torch.equal(g, ref[key])}
+    passed = {}
+    for name, (loss, grads) in runs.items():
+        rel = {key: ((g - ref[key]).abs().max() / ref[key].abs().max()).item() for key, g in grads.items()
+               if ref[key].abs().max() > 0}  # fmt: skip
+        differ = [key for key, g in grads.items() if not torch.equal(g, ref[key])]
+        worst = max(rel, key=rel.get)
+        passed[name] = (torch.equal(loss, ref_loss) and not set(differ) - spread
+                        and all(rel.get(key, 0.0) <= RECOMPUTE_GRAD_TOL for key in differ))  # fmt: skip
+        print(f"  f32 train step {CADUCEUS} (2, 32768), {name} vs none recomputed: loss {loss.item():.7f} vs "
+              f"{ref_loss.item():.7f} (bitwise {torch.equal(loss, ref_loss)}); {len(grads) - len(differ)} of "
+              f"{len(grads)} leaves bitwise equal; worst leaf {worst} at {rel[worst]:.3e} of its max|grad|; not "
+              f"bitwise: {differ[:6]}{' ...' if len(differ) > 6 else ''}")  # fmt: skip
+    print(f"  rule: bitwise but for the leaves two runs with none recomputed differ in ({sorted(spread)}), those "
+          f"within {RECOMPUTE_GRAD_TOL} of their max|grad|: {passed}")  # fmt: skip
+    if not passed["all recomputed"] or not passed["none recomputed, again"]:
+        raise SmokeFailure(f"recompute parity: all recomputed vs none fails the rule ({passed})")
+    if passed["control: plain forward scan, none recomputed"]:
+        raise SmokeFailure("recompute parity: the rule passes its control (the plain forward scan)")
+
+
+def fused_at_scale(fq: Path, shard_dir: Path, counts: Counts) -> None:
+    """`predict --fused-chop --max-length SCALE_MAX_LENGTH` on the Caduceus
+    flagship through the CLI: scan_fwd twice a layer per dispatch, and the
+    chopped FASTQ byte-identical, after decompression and under the same
+    name, to `chop` over the shards of the two-phase `predict` at the same
+    window (`shard_dir`); control: those shards with one long read's labels
+    flipped must differ."""
+    import torch
+
+    from deepchopper_tpu_torch import cli
+    from deepchopper_tpu_torch.chop import ChopOptions, stream_chop_with_predicts
+    from deepchopper_tpu_torch.io.predicts import load_predicts_from_batch_pts
+    from deepchopper_tpu_torch.models.registry import build_model
+
+    work = fq.parent / "fused_long"
+    n_reads = N_READS + len(LONG_READS)
+    argv = ["predict", str(fq), "--model", CADUCEUS, "--random-init", "--max-length", str(SCALE_MAX_LENGTH)]
+    (work / "fused").mkdir(parents=True)
+    with contextlib.chdir(work / "fused"):
+        counts.reset()
+        stats = cli.predict(cli.build_parser().parse_args([*argv, "--fused-chop"]))
+        torch.cuda.synchronize()
+        launches = counts.read()
+    engine = stats.extras["engine"]
+    n_layer = build_model(CADUCEUS).backbone_config.n_layer
+    want = {"scan_fwd": 2 * n_layer * (engine.dispatches + engine.warm_runs), "scan_ckpt": 0, "scan_bwd": 0}
+    if launches != want or stats.total_fq_count != n_reads or (1, SCALE_MAX_LENGTH) not in engine.shape_counts:
+        raise SmokeFailure(f"fused at {SCALE_MAX_LENGTH}: launches {launches} != {want}, {stats.total_fq_count} reads, "
+                           f"shapes {engine.shape_counts}")  # fmt: skip
+    fused_out = _chopped(work / "fused")
+    fused_bytes = _gunzip(fused_out)
+    (work / "two").mkdir()
+    with contextlib.chdir(work / "two"):
+        if cli.main(["chop", str(shard_dir), str(fq)]) != 0:
+            raise SmokeFailure("chop over the shards at the wide window exited non-zero")
+        two = _chopped(work / "two")
+        predicts = load_predicts_from_batch_pts(shard_dir)
+        control = stream_chop_with_predicts(one_read_flipped(predicts, f"bench_read_{N_READS}"), fq,
+                                            ChopOptions(output_prefix="control"))  # fmt: skip
+        control_bytes = _gunzip(control.output_file)
+    if two.name != fused_out.name or _gunzip(two) != fused_bytes:
+        raise SmokeFailure(f"fused at {SCALE_MAX_LENGTH} vs predict + chop: {two.name} vs {fused_out.name}, bytes "
+                           f"equal: {_gunzip(two) == fused_bytes}")  # fmt: skip
+    if control_bytes == fused_bytes:
+        raise SmokeFailure(f"fused at {SCALE_MAX_LENGTH}: its control (bench_read_{N_READS}'s labels flipped) passes")
+    print(f"fused predict+chop {CADUCEUS} --max-length {SCALE_MAX_LENGTH}: {stats.total_fq_count} reads -> "
+          f"{stats.total_output_count} records, {engine.dispatches} dispatches (shapes {engine.shape_counts}), "
+          f"launches {launches}; byte-identical to predict + chop ({len(fused_bytes)} bytes, same name "
+          f"{fused_out.name}); control (bench_read_{N_READS}'s labels flipped) differs")  # fmt: skip
+
+
+def phase_caduceus_scale(card: str, work: Path) -> dict[str, int]:
+    """The Caduceus flagship at its full scale. `predict --max-length 131072`
+    through the CLI over the benchmark's reads and LONG_READS (the 131072
+    bucket dispatched, scan_fwd counted over its replays; the 140000-base
+    read truncated and flagged), held to the plain scan at the widest batch
+    (check_against_plain: f32 and bf16 rules, a second correct scan at
+    chunk 1000, the reverse-run-forward control) and its CUDA graphs to the
+    eager step; `--fused-chop` at that window byte-identical to the
+    two-phase path. `train` through the CLI at the JAX recipe's 2^17 tokens
+    a batch (no tokens_per_batch override) at data.max_length 32768 and
+    131072, one epoch each with LONG_READS in the training split, scan_fwd
+    counted as 32 + 2k a train batch for its k recomputed blocks. Gradients:
+    every block recomputed against none, bitwise (recompute_parity); at
+    (1, 131072) on the first 2 layers (the depth cut for this comparison
+    alone), kernels against the plain scan, both recomputing, each leaf
+    within CADUCEUS_GRAD_TOL, control: each 32-step chunk restarted. Then the train step timed at
+    CADUCEUS_TIMED. Returns the scan kernels' launches of the 32768 train
+    run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deepchopper_tpu_torch.ops import scan
+
+    fq = scale_reads(work)
+    n_reads = N_READS + len(LONG_READS)
+    window = ("--max-length", str(SCALE_MAX_LENGTH))
+    timed(phase_predict, card, CADUCEUS, fq, Counts(scan), {"scan_fwd": 2}, f"-{SCALE_MAX_LENGTH}", window, n_reads,
+          (32768, SCALE_MAX_LENGTH))  # fmt: skip
+    shard_dir = work / f"{CADUCEUS}-{SCALE_MAX_LENGTH}" / "out" / "0"
+    flags = {}
+    for p in shard_dir.glob("*.npz"):
+        shard = np.load(p)
+        for name, row in zip(_shard_read_names(shard["id"]), shard["id"]):
+            flags[name] = (int(row[1]), shard["seq"].shape[1])
+    long_flags = [flags[f"bench_read_{N_READS + i}"] for i in range(len(LONG_READS))]
+    if long_flags != [(int(n >= SCALE_MAX_LENGTH), SCALE_MAX_LENGTH) for n in LONG_READS]:
+        raise SmokeFailure(f"long reads' (truncated, width): {long_flags}")
+    print(f"  long reads {LONG_READS}: (truncated, width) {long_flags}")
+
+    control = ("control: reverse run forward", scan_reverse_run_forward)
+    second = ("plain at chunk 1000", functools.partial(scan.selective_scan_reference, chunk=1000))
+    timed(check_against_plain, fq, shard_dir, CADUCEUS, swapped_scan, scan.selective_scan_reference, second, control,
+          control, CADUCEUS_F32_LOGIT_TOL, CADUCEUS_TIE_BAND, False, SCALE_MAX_LENGTH, True)  # fmt: skip
+    timed(check_graph_replay, fq, CADUCEUS, SCALE_MAX_LENGTH, True)
+    timed(fused_at_scale, fq, shard_dir, Counts(scan))
+    gc.collect()  # the engines above and their graph pools: the train steps plan against what is allocated
+    torch.cuda.empty_cache()
+
+    per_batch = {"scan_fwd": (32, 32), "scan_ckpt": (32, 0), "scan_bwd": (32, 0)}
+    launches = timed(phase_train, card, CADUCEUS, Counts(scan), per_batch, (), "", LONG_READS, (24576, 32768),
+                     {"scan_fwd": 2})  # fmt: skip
+    timed(phase_train, card, CADUCEUS, Counts(scan), per_batch, (f"data.max_length={SCALE_MAX_LENGTH}",),
+          f"-{SCALE_MAX_LENGTH}", LONG_READS, (32768, SCALE_MAX_LENGTH), {"scan_fwd": 2})  # fmt: skip
+
+    timed(recompute_parity)
+    two = 2  # layers of the (1, 131072) comparison
+    timed(train_parity, CADUCEUS, swapped_scan, Counts(scan),
+          {"scan_fwd": 2 * two + 2 * two, "scan_ckpt": 2 * two, "scan_bwd": 2 * two},
+          {"plain": plain_scan(scan.scan_bwd_reference),
+           "control: chunks restarted": plain_scan(scan_bwd_chunks_restarted, scan.CKPT_CHUNK)},
+          "control: chunks restarted", (((1, SCALE_MAX_LENGTH), 4),), CADUCEUS_GRAD_TOL, two, two)  # fmt: skip
+    timed(time_train_step, card, CADUCEUS, CADUCEUS_TIMED, 3)
     return launches
 
 
@@ -1387,7 +1693,8 @@ def phase_overfit(card: str) -> None:
 def time_train_step(card: str, model_name: str, shapes: tuple, reps: int) -> None:
     """bf16 train steps of `model_name` (random init, Adam) on each batch
     shape after two warm-up steps: ms/step (host clock around `reps` steps
-    ending in a synchronise), padded tokens/s and peak device memory."""
+    ending in a synchronise), padded tokens/s and peak device memory, which
+    must stay below the card's; for Caduceus, the blocks recomputed."""
     import torch
 
     from deepchopper_tpu_torch.models.registry import DeepChopper
@@ -1408,10 +1715,16 @@ def time_train_step(card: str, model_name: str, shapes: tuple, reps: int) -> Non
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / reps * 1e3
         tokens = shape[0] * shape[1]
+        peak, total = torch.cuda.max_memory_allocated(), torch.cuda.get_device_properties(0).total_memory
+        chosen = getattr(model.backbone, "_recompute_k", None)
+        recomputed = "" if chosen is None else f", {chosen[shape]} of {model.backbone_config.n_layer} blocks recomputed"
         print(
             f"train step {model_name} {shape} bf16 on {card}: {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} tokens/s "
-            f"({tokens} padded tokens), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            f"({tokens} padded tokens){recomputed}, peak memory {peak / 1e9:.2f} GB of {total / 1e9:.2f} GB "
+            f"({torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved)"
         )
+        if peak >= total:
+            raise SmokeFailure(f"train step {model_name} {shape}: peak {peak} B reaches the card's {total} B")
 
 
 def print_device_time(prof, wall_ms: float, what: str) -> list[tuple[str, float, int]]:
@@ -2124,6 +2437,25 @@ def recorded_engines():
 
 
 @contextlib.contextmanager
+def recorded_models():
+    """Record every model `DeepChopper.new` builds meanwhile (the trainer
+    builds its own)."""
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+
+    made, new = [], DeepChopper.new
+
+    def recorded(*args, **kwargs):
+        made.append(new(*args, **kwargs))
+        return made[-1]
+
+    DeepChopper.new = staticmethod(recorded)
+    try:
+        yield made
+    finally:
+        DeepChopper.new = staticmethod(new)
+
+
+@contextlib.contextmanager
 def split_times():
     """Yield a dict of wall seconds, summed by step, of the `predict
     --fused-chop` run meanwhile (host clock; the functions it calls are
@@ -2557,19 +2889,19 @@ def rank_training_batch() -> dict:
     return batch
 
 
-def f32_model(model_name: str):
+def f32_model(model_name: str, n_layer: int | None = None):
     """`model_name`'s random-init weights (seed 0) in a float32 copy, in train
-    mode, on the current card."""
+    mode, on the current card; with `n_layer`, its first n_layer layers."""
     import dataclasses
 
     from deepchopper_tpu_torch.models.registry import DeepChopper
 
     base = DeepChopper.new(model_name, seed=0, device="cuda")
-    model = type(base)(
-        dataclasses.replace(base.backbone_config, compute_dtype="float32"),
-        dataclasses.replace(base.head_config, compute_dtype="float32"),
-    ).cuda()
-    model.load_state_dict(base.state_dict())
+    backbone = dataclasses.replace(base.backbone_config, compute_dtype="float32")
+    if n_layer is not None:
+        backbone = dataclasses.replace(backbone, n_layer=n_layer)
+    model = type(base)(backbone, dataclasses.replace(base.head_config, compute_dtype="float32")).cuda()
+    model.load_state_dict({k: v for k, v in base.state_dict().items() if k in model.state_dict()})
     return model.train()
 
 
@@ -3174,14 +3506,11 @@ def main() -> int:
             per_batch = {"mixer_inproj_fwd": (4, 4), "mixer_bwd": (4, 0), "mixer_fwd": (0, 0)}
             launches = timed(phase_train, card, HYENA, Counts(mixer, inproj), per_batch, (), "-inproj")
         inproj_row["launches"] = launches["mixer_inproj_fwd"]
-        per_batch = {"scan_fwd": (32, 32), "scan_ckpt": (32, 0), "scan_bwd": (32, 0)}
-        launches = timed(phase_train, card, CADUCEUS, Counts(scan), per_batch,
-                         (f"data.tokens_per_batch={CADUCEUS_TRAIN_TOKENS}",))  # fmt: skip
+        launches = timed(phase_caduceus_scale, card, work)
         for row in scan_rows:
             row["launches"] = launches[row["name"]]
         timed(phase_overfit, card)
         timed(time_train_step, card, HYENA, ((128, 1024), (4, 32768)), 10)
-        timed(time_train_step, card, CADUCEUS, ((64, 1024), (2, 32768)), 3)
         timed(phase_baselines, card, fq)
         if opts.profile:
             phase_profile(fq)

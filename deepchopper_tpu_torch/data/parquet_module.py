@@ -30,7 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from ..io.parquet import require_pyarrow
-from .bucketing import Batch, EncodedRead, bucketed_batches, encode_read
+from .bucketing import Batch, EncodedRead, bucketed_batches, default_buckets, encode_read
 
 _FASTQ_SUFFIXES = (".fq", ".fastq", ".fq.gz", ".fastq.gz", ".fq.bgz", ".fastq.bgz")
 _SPLITS = ("train", "val", "test")
@@ -297,9 +297,14 @@ class DataModule:
     # -- batch iterators ---------------------------------------------------
 
     def _batches(self, reads: Iterator[EncodedRead]) -> Iterator[Batch]:
+        """Bucketed batches on the ladder, with max_length appended above its
+        top as predict's engine does. The JAX module keeps the bare ladder
+        whatever max_length is, so a read past 32768 tokens there fails
+        to fit its clamped bucket (ROADMAP queue 3)."""
+        ladder = default_buckets()
         yield from bucketed_batches(
             reads,
-            buckets=self.buckets,
+            buckets=self.buckets or default_buckets(max(self.max_length, ladder[-1])),
             tokens_per_batch=self.tokens_per_batch,
             max_batch=self.max_batch,
         )

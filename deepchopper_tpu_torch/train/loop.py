@@ -587,6 +587,12 @@ class Trainer:
         key = "best_" + cfg.callbacks.monitor.replace("/", "_")
         result = {key: best_metric if best_metric is not None else float("nan")}
         self._on_rank_zero((self.out_dir / "result.json").write_text, json.dumps(result))
+        if self.device.type == "cuda":
+            # Give the train steps' cached blocks back to the card: a CUDA graph
+            # captured later in this process (predict's engine) cannot take
+            # them from the cache, and a 2^17-token Caduceus epoch leaves most
+            # of an 80 GB card cached.
+            torch.cuda.empty_cache()
         return result
 
     def test(self, datamodule: DataModule | None = None, ckpt_path: str | Path | None = None) -> dict[str, float]:

@@ -750,3 +750,47 @@ def test_selective_scan_computes_shapes_the_kernels_do_not_take(cuda, d_in, n, r
     want = scan.scan_bwd_reference(*args, reverse)
     for (name, tol), leaf, w in zip(SCAN_GRADS, leaves, want):
         assert _rel(leaf.grad.cpu(), w) <= tol, name
+
+
+def test_recomputed_blocks_give_the_same_gradients_on_the_card(cuda):
+    """The Caduceus flagship at float32 on a (2, 4096) batch, one forward and
+    backward with every block recomputed against none (run twice): the
+    loss bitwise equal, every gradient bitwise equal wherever the two runs
+    with none recomputed are (the same kernels on the same inputs) and
+    within 1e-5 of its max|g| where they are not (the embedding table: its
+    CUDA backward sums in an order that varies from run to run, chip_smoke.py's
+    RECOMPUTE_GRAD_TOL); the recompute's scan_fwd launches counted (2 a
+    recomputed block)."""
+    import dataclasses
+
+    from deepchopper_tpu_torch.models.registry import DeepChopper
+    from deepchopper_tpu_torch.ops import scan
+    from deepchopper_tpu_torch.train.loss import continuous_interval_loss
+
+    base = DeepChopper.new("caduceus-ph_seqlen-131k_d_model-256_n_layer-16", seed=0, device=cuda)
+    model = type(base)(dataclasses.replace(base.backbone_config, compute_dtype="float32"),
+                       dataclasses.replace(base.head_config, compute_dtype="float32")).to(cuda)  # fmt: skip
+    model.load_state_dict(base.state_dict())
+    model.train()
+    n_layer = model.backbone_config.n_layer
+    ids, quals = _reads(2, 4096, seed=5)
+    ids = torch.from_numpy(ids.astype(np.int64)).to(cuda)
+    norm = torch.from_numpy(quals.astype(np.float32)).to(cuda)
+    norm = norm / norm.norm(dim=-1, keepdim=True)
+    labels = (ids % 2).long()
+    runs = []
+    for k in (0, 0, n_layer):
+        model.backbone._recompute = k
+        model.zero_grad(set_to_none=True)
+        scan.reset_launch_counts()
+        loss = continuous_interval_loss(model(ids, norm), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert scan.launch_counts == {"scan_fwd": 2 * n_layer + 2 * k, "scan_ckpt": 2 * n_layer, "scan_bwd": 2 * n_layer}
+        runs.append((loss.detach(), {name: p.grad.clone() for name, p in model.named_parameters()}))
+    (loss0, ref), (_loss_again, again), (loss_k, got) = runs
+    assert torch.equal(loss0, loss_k)
+    for name, g in got.items():
+        assert (g - ref[name]).abs().max() <= 1e-5 * ref[name].abs().max(), name
+        if torch.equal(again[name], ref[name]):
+            assert torch.equal(g, ref[name]), name
