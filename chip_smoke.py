@@ -157,7 +157,7 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 8. With `--profile`, profiles one warm `predict --fused-chop` pass of the
    flagship (graphs replayed: the mixer kernel must show in its device
    time), then one more pass of predict and three train steps of each
-   model: device time by kernel and the device's busy share.
+   model: device time by kernel.
 9. Prints the kernel table as one JSON line (launches from the train runs;
    conv_fwd's from its op's run; setup's from the fused run) and, last, the
    contract line.
@@ -1728,8 +1728,10 @@ def time_train_step(card: str, model_name: str, shapes: tuple, reps: int) -> Non
 
 
 def print_device_time(prof, wall_ms: float, what: str) -> list[tuple[str, float, int]]:
-    """Device time by kernel of a torch.profiler run, and the device's busy
-    share of `wall_ms`; returns the (kernel, ms, count) rows."""
+    """Device time by kernel of a torch.profiler run, each row with its share
+    of the summed kernel time; returns the (kernel, ms, count) rows. Kernels
+    that overlap are not merged here: the device's busy share is the
+    benchmark's `device_idle.*`."""
     from torch.autograd import DeviceType
 
     rows = [
@@ -1738,10 +1740,10 @@ def print_device_time(prof, wall_ms: float, what: str) -> list[tuple[str, float,
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%})")
+    kernel_ms = sum(r[1] for r in rows)
+    print(f"profiled {what}: wall {wall_ms:.1f} ms, device time by kernel:")
     for key, ms, count in rows[:14]:
-        print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:5d}  {key[:100]}")
+        print(f"  {ms:9.3f} ms {ms / kernel_ms:6.1%} x{count:5d}  {key[:100]}")
     return rows
 
 
@@ -1749,8 +1751,7 @@ def phase_profile(fq: Path) -> None:
     """Profile (torch.profiler, CPU and CUDA activity), for each model, the
     engine over the same reads once more, its CUDA graphs captured by a pass
     before, and three bf16 train steps (Hyena at (128, 1024), Caduceus at
-    (64, 1024)): device time by kernel and the device's busy share of the
-    wall time (model set-up excluded)."""
+    (64, 1024)): device time by kernel (model set-up excluded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

@@ -23,6 +23,7 @@ from ..io.predicts import pack_read_ids
 from ..ops.labels import vectorize_targets
 from ..ops.qual import normalize_quals
 from ..ops.sequence import tokenize_bases
+from ..utils.trace import span
 
 
 @dataclasses.dataclass
@@ -110,22 +111,23 @@ def pick_bucket(length: int, buckets: list[int]) -> int:
 
 
 def pad_batch(reads: list[EncodedRead], width: int) -> Batch:
-    """Right-pad encoded reads into one fixed (B, width) batch."""
-    b = len(reads)
-    input_ids = np.full((b, width), default.TOKEN_PAD, dtype=np.int32)
-    labels = np.full((b, width), default.IGNORE_LABEL, dtype=np.int32)
-    quals = np.zeros((b, width), dtype=np.float32)
-    quals_raw = np.zeros((b, width), dtype=np.uint8)
-    lengths = np.zeros(b, dtype=np.int32)
-    for i, r in enumerate(reads):
-        n = len(r.input_ids)
-        input_ids[i, :n] = r.input_ids
-        labels[i, :n] = r.labels
-        quals[i, :n] = r.quals
-        if r.quals_raw is not None:
-            quals_raw[i, :n] = r.quals_raw
-        lengths[i] = n
-    ids = pack_read_ids([r.id for r in reads], [r.truncated for r in reads])
+    """Right-pad encoded reads into one fixed (B, width) batch (span `data.pad`)."""
+    with span("data.pad"):
+        b = len(reads)
+        input_ids = np.full((b, width), default.TOKEN_PAD, dtype=np.int32)
+        labels = np.full((b, width), default.IGNORE_LABEL, dtype=np.int32)
+        quals = np.zeros((b, width), dtype=np.float32)
+        quals_raw = np.zeros((b, width), dtype=np.uint8)
+        lengths = np.zeros(b, dtype=np.int32)
+        for i, r in enumerate(reads):
+            n = len(r.input_ids)
+            input_ids[i, :n] = r.input_ids
+            labels[i, :n] = r.labels
+            quals[i, :n] = r.quals
+            if r.quals_raw is not None:
+                quals_raw[i, :n] = r.quals_raw
+            lengths[i] = n
+        ids = pack_read_ids([r.id for r in reads], [r.truncated for r in reads])
     return Batch(
         input_ids,
         labels,

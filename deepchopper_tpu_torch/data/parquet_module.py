@@ -30,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from ..io.parquet import require_pyarrow
+from ..utils.trace import span
 from .bucketing import Batch, EncodedRead, bucketed_batches, default_buckets, encode_read
 
 _FASTQ_SUFFIXES = (".fq", ".fastq", ".fq.gz", ".fastq.gz", ".fq.bgz", ".fastq.bgz")
@@ -310,7 +311,15 @@ class DataModule:
         )
 
     def train_batches(self, epoch: int = 0) -> Iterator[Batch]:
-        yield from self._batches(self._shuffled(self._split_iter("train"), epoch))
+        """The epoch's shuffled, bucketed batches; producing each is the span
+        `data.batch` (read, encode, shuffle and bucket; `data.pad` inside it)."""
+        batches = self._batches(self._shuffled(self._split_iter("train"), epoch))
+        while True:
+            with span("data.batch"):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
 
     def val_batches(self) -> Iterator[Batch]:
         yield from self._batches(self._split_iter("val"))

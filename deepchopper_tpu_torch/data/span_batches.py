@@ -25,6 +25,7 @@ import numpy as np
 from .. import default, native
 from ..io.fastq import open_compressed_reader
 from ..ops.sequence import normalize_seq_bytes, tokenize_bases
+from ..utils.trace import span
 from .bucketing import default_buckets
 
 _CHUNK_BYTES = 8 << 20
@@ -136,13 +137,14 @@ def iter_fastq_chunks_indexed(path: str | Path, chunk_bytes: int = _CHUNK_BYTES)
     carry = b""
     try:
         while True:
-            data = fh.read(chunk_bytes)
-            final = not data
-            raw = carry + data if carry else data
-            if not raw:
-                break
-            buf = np.frombuffer(raw, np.uint8)
-            spans, consumed = native.fq_index(buf, final=final) if use_native else fq_index_py(raw, final)
+            with span("source.index"):
+                data = fh.read(chunk_bytes)
+                final = not data
+                raw = carry + data if carry else data
+                if not raw:
+                    break
+                buf = np.frombuffer(raw, np.uint8)
+                spans, consumed = native.fq_index(buf, final=final) if use_native else fq_index_py(raw, final)
             if spans.shape[0]:
                 yield buf, spans
             carry = raw[consumed:]
@@ -192,25 +194,26 @@ class SpanBatchSource:
 
     def _emit(self, width: int, pending: list[tuple[FastqChunk, np.ndarray]]) -> SpanBatch:
         """Encode pending (chunk, rows) groups into one padded batch."""
-        b = sum(rows.size for _, rows in pending)
-        ids = np.empty((b, width), np.int8)
-        quals = np.empty((b, width), np.uint8)
-        lengths = np.empty(b, np.int32)
-        refs: list[tuple[FastqChunk, int]] = []
-        use_native = native.available()
-        at = 0
-        for chunk, rows in pending:
-            nb = rows.size
-            out = (ids[at : at + nb], quals[at : at + nb], lengths[at : at + nb])
-            if use_native:
-                native.encode_spans_batch(
-                    chunk.buf, chunk.spans, rows, width, self.max_length, default.TOKEN_SEP, default.TOKEN_PAD,
-                    qual_offset=default.QUAL_OFFSET, threads=self.threads, out=out,
-                )  # fmt: skip
-            else:
-                encode_spans_py(chunk.buf, chunk.spans, rows, width, self.max_length, out)
-            refs.extend((chunk, int(r)) for r in rows)
-            at += nb
+        with span("source.encode"):
+            b = sum(rows.size for _, rows in pending)
+            ids = np.empty((b, width), np.int8)
+            quals = np.empty((b, width), np.uint8)
+            lengths = np.empty(b, np.int32)
+            refs: list[tuple[FastqChunk, int]] = []
+            use_native = native.available()
+            at = 0
+            for chunk, rows in pending:
+                nb = rows.size
+                out = (ids[at : at + nb], quals[at : at + nb], lengths[at : at + nb])
+                if use_native:
+                    native.encode_spans_batch(
+                        chunk.buf, chunk.spans, rows, width, self.max_length, default.TOKEN_SEP, default.TOKEN_PAD,
+                        qual_offset=default.QUAL_OFFSET, threads=self.threads, out=out,
+                    )  # fmt: skip
+                else:
+                    encode_spans_py(chunk.buf, chunk.spans, rows, width, self.max_length, out)
+                refs.extend((chunk, int(r)) for r in rows)
+                at += nb
         return SpanBatch(ids, quals, lengths, refs)
 
     def batches(self) -> Iterator[SpanBatch]:

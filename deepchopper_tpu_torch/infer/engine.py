@@ -45,6 +45,7 @@ from ..io.predicts import Predict, write_prediction_shard, write_prediction_shar
 from ..ops import _build
 from ..ops.sequence import detokenize_bases
 from ..parallel.mesh import process_shard_info
+from ..utils.trace import span
 
 log = logging.getLogger(__name__)
 
@@ -113,7 +114,8 @@ def _prefetch_iter(it: Iterator, depth: int) -> Iterator:
     threading.Thread(target=_run, name="batch-prefetch", daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with span("engine.prefetch_wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
@@ -391,21 +393,22 @@ class PredictEngine:
         if batch.quals_raw is None:
             raise ValueError("engine requires batches with quals_raw (see pad_batch)")
         b, w = batch.input_ids.shape
-        ids8 = batch.input_ids.astype(np.int8, copy=False)  # vocab ids < 128
-        parts = []
-        for start, rows, target_b in self._plan_dispatches(b, w):
-            ids_in, quals_in = ids8[start : start + rows], batch.quals_raw[start : start + rows]
-            if rows < target_b:
-                ids_in, quals_in = _pad_rows(ids_in, target_b, default.TOKEN_PAD), _pad_rows(quals_in, target_b, 0)
-            with self._lock:
-                out = self._run((target_b, w), ids_in, quals_in)
-                parts.append(self._to_host(out[:rows]))
-            self.stats.shape_counts[(target_b, w)] = self.stats.shape_counts.get((target_b, w), 0) + 1
-            self.stats.padded_tokens += target_b * w
-        if self.device.type != "cuda":
-            return batch, parts, None
-        done = torch.cuda.Event()
-        done.record()
+        with span("engine.dispatch"):
+            ids8 = batch.input_ids.astype(np.int8, copy=False)  # vocab ids < 128
+            parts = []
+            for start, rows, target_b in self._plan_dispatches(b, w):
+                ids_in, quals_in = ids8[start : start + rows], batch.quals_raw[start : start + rows]
+                if rows < target_b:
+                    ids_in, quals_in = _pad_rows(ids_in, target_b, default.TOKEN_PAD), _pad_rows(quals_in, target_b, 0)
+                with self._lock:
+                    out = self._run((target_b, w), ids_in, quals_in)
+                    parts.append(self._to_host(out[:rows]))
+                self.stats.shape_counts[(target_b, w)] = self.stats.shape_counts.get((target_b, w), 0) + 1
+                self.stats.padded_tokens += target_b * w
+            if self.device.type != "cuda":
+                return batch, parts, None
+            done = torch.cuda.Event()
+            done.record()
         return batch, parts, done
 
     def predict_batches(self, batches: Iterator[Batch], prefetch: int = 3) -> Iterator[tuple[Batch, np.ndarray]]:
@@ -434,8 +437,9 @@ class PredictEngine:
     def _collect(self, batch: Batch, parts: list, done: torch.cuda.Event | None) -> tuple[Batch, np.ndarray]:
         """Wait for a batch's copies and join its parts' rows, in order, as
         `_unpack` of the JAX engine does."""
-        if done is not None:
-            done.synchronize()
+        with span("engine.result_wait"):
+            if done is not None:
+                done.synchronize()
         self.stats.batches += 1
         self.stats.reads += len(batch.input_ids)
         self.stats.tokens += int(batch.lengths.sum())

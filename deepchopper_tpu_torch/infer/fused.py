@@ -35,6 +35,7 @@ from ..io.bgzf import open_bgzf_writer
 from ..io.chop import ChopType, split_records_by_intervals, split_records_by_remove_intervals
 from ..ops.labels import majority_voting_batch
 from ..ops.sequence import normalize_seq_bytes
+from ..utils.trace import span, timed
 
 log = logging.getLogger(__name__)
 
@@ -43,8 +44,9 @@ log = logging.getLogger(__name__)
 class FusedStats(ChopStats):
     """ChopStats plus a host/device stage breakdown (wall seconds)."""
 
-    encode_s: float = 0.0  # wall minus device_s: the feed thread's own work
+    encode_s: float = 0.0  # wall minus device_s: the feed thread's own work, handoff_s included
     device_s: float = 0.0  # feed thread blocked on device results
+    handoff_s: float = 0.0  # feed thread handing batches to the chop worker, blocked on its full queue included
     smooth_s: float = 0.0  # worker: majority vote + region extraction (overlaps the device)
     chop_write_s: float = 0.0  # worker: record split + BGZF write (overlaps the device)
     first_write_s: float = 0.0  # wall from the start to the first chopped chunk written
@@ -172,25 +174,30 @@ def fused_predict_chop(
         """Vote and extract regions for one batch, then chop the completed
         chunks. Runs on the worker: the C++ vote and region kernels and the
         BGZF writer release the GIL, so this overlaps the feed thread."""
-        t0 = time.monotonic()
-        pred_lens = (batch.lengths.astype(np.int64) - 1).clip(min=0)
-        smoothed = majority_voting_batch(labels, pred_lens, opts.smooth_window_size)
-        for i, (chunk, row) in enumerate(batch.refs):
-            n = int(pred_lens[i])
-            # A prediction shorter than the read: truncated at encode.
-            chunk.intervals[row] = (n != int(chunk.spans[row, 3]), select_intervals(smoothed[i, :n], opts))
-            chunk.remaining -= 1
-            stats.predicts_loaded += 1
-        t1 = time.monotonic()
-        stats.smooth_s += t1 - t0
-        chop_ready(writer)
-        stats.chop_write_s += time.monotonic() - t1
+        with timed("chop.vote") as vote:
+            pred_lens = (batch.lengths.astype(np.int64) - 1).clip(min=0)
+            smoothed = majority_voting_batch(labels, pred_lens, opts.smooth_window_size)
+        with timed("chop.regions") as regions:
+            for i, (chunk, row) in enumerate(batch.refs):
+                n = int(pred_lens[i])
+                # A prediction shorter than the read: truncated at encode.
+                chunk.intervals[row] = (n != int(chunk.spans[row, 3]), select_intervals(smoothed[i, :n], opts))
+                chunk.remaining -= 1
+                stats.predicts_loaded += 1
+        stats.smooth_s += vote.seconds + regions.seconds
+        with timed("chop.records") as records:
+            chop_ready(writer)
+        stats.chop_write_s += records.seconds
 
     work: queue.Queue = queue.Queue(maxsize=8)
     worker_err: list[BaseException] = []
 
     def worker_loop(writer) -> None:
-        while (item := work.get()) is not None:
+        while True:
+            with span("fused.worker_wait"):
+                item = work.get()
+            if item is None:
+                return
             try:
                 consume(*item, writer)
             except BaseException as exc:  # noqa: BLE001 - raised again on the feed thread
@@ -216,7 +223,10 @@ def fused_predict_chop(
                 t_last = time.monotonic()
                 for batch, labels in engine.predict_batches(source.batches()):
                     stats.device_s += time.monotonic() - t_last  # time blocked in the iterator
-                    if not put((batch, labels)):
+                    with timed("fused.handoff") as handoff:
+                        handed = put((batch, labels))
+                    stats.handoff_s += handoff.seconds
+                    if not handed:
                         break
                     t_last = time.monotonic()
             finally:
@@ -249,8 +259,9 @@ def fused_predict_chop(
     stats.encode_s = max(stats.elapsed_s - stats.device_s, 0.0)
     stats.peak_rss_bytes = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     log.info(
-        "fused: %d reads -> %d records in %.2fs (device-wait %.2fs, smooth %.2fs, chop+write %.2fs) -> %s",
-        stats.total_fq_count, stats.total_output_count, stats.elapsed_s, stats.device_s, stats.smooth_s,
-        stats.chop_write_s, stats.output_file,
+        "fused: %d reads -> %d records in %.2fs (device-wait %.2fs, handoff-wait %.2fs, smooth %.2fs, "
+        "chop+write %.2fs) -> %s",
+        stats.total_fq_count, stats.total_output_count, stats.elapsed_s, stats.device_s, stats.handoff_s,
+        stats.smooth_s, stats.chop_write_s, stats.output_file,
     )  # fmt: skip
     return stats

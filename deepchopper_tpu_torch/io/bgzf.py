@@ -15,6 +15,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO
 
 from .. import native
+from ..utils.trace import span
 
 # Max uncompressed payload per BGZF block.
 MAX_BLOCK_SIZE = 65280
@@ -84,19 +85,19 @@ class BgzfWriter(io.RawIOBase):
         return len(data)
 
     def _submit(self, chunk: bytes) -> None:
-        if self._native:
-            self._sink.write(native.bgzf_compress(chunk, self._level, self._threads))
-            return
-        if self._pool is None:
-            self._sink.write(compress_block(chunk, self._level))
-            return
-        self._pending.append(self._pool.submit(compress_block, chunk, self._level))
-        if len(self._pending) >= self._max_pending:
-            # Drain the oldest half to bound memory while keeping the pool busy.
-            drain = len(self._pending) // 2
-            for fut in self._pending[:drain]:
-                self._sink.write(fut.result())
-            del self._pending[:drain]
+        with span("chop.bgzf"):
+            if self._native:
+                self._sink.write(native.bgzf_compress(chunk, self._level, self._threads))
+            elif self._pool is None:
+                self._sink.write(compress_block(chunk, self._level))
+            else:
+                self._pending.append(self._pool.submit(compress_block, chunk, self._level))
+                if len(self._pending) >= self._max_pending:
+                    # Drain the oldest half to bound memory while keeping the pool busy.
+                    drain = len(self._pending) // 2
+                    for fut in self._pending[:drain]:
+                        self._sink.write(fut.result())
+                    del self._pending[:drain]
 
     def flush(self) -> None:
         if self.closed or self._sink.closed:

@@ -8,6 +8,12 @@ lives in the optimizer's `param_groups`, the counterpart of the JAX loop's
 `optax.inject_hyperparams` leaf, so the plateau scheduler rewrites it between
 epochs.
 
+`train_step`'s stages are the spans `train.forward` (model and loss),
+`train.backward`, `train.optimizer` (zeroing the gradients; clip and step)
+and `train.stats` (`utils.trace`): the intervals in which the host
+enqueues each stage's work (and waits, where it reads a device value),
+not the device's time in it.
+
 A batch is a dict of tensors on the model's device: `input_ids` (B, W) int64,
 `input_quals` (B, W) float32 and `labels` (B, W) int64 (-100 = ignored).
 
@@ -22,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel import all_reduce_sum
+from ..utils.trace import span
 from .loss import continuous_interval_loss
 from .metrics import binary_stats_arrays
 
@@ -71,18 +78,23 @@ def train_step(
     summed gradients) the loss and stats returned are summed over the ranks,
     and the clip sees the gradients after DDP's all-reduce: the global ones,
     as optax's clip does."""
-    optimizer.zero_grad(set_to_none=True)
-    logits = model(batch["input_ids"], batch["input_quals"])
-    loss = continuous_interval_loss(logits, batch["labels"], lambda_penalty, counts=counts)
-    loss.backward()
-    if gradient_clip:
-        clip_by_global_norm_([p for group in optimizer.param_groups for p in group["params"]], gradient_clip)
-    optimizer.step()
-    stats = binary_stats_arrays(torch.argmax(logits.detach(), dim=-1), batch["labels"])
-    loss = loss.detach()
-    if counts is not None:
-        all_reduce_sum(loss)
-        all_reduce_sum(stats)
+    with span("train.optimizer"):
+        optimizer.zero_grad(set_to_none=True)
+    with span("train.forward"):
+        logits = model(batch["input_ids"], batch["input_quals"])
+        loss = continuous_interval_loss(logits, batch["labels"], lambda_penalty, counts=counts)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        if gradient_clip:
+            clip_by_global_norm_([p for group in optimizer.param_groups for p in group["params"]], gradient_clip)
+        optimizer.step()
+    with span("train.stats"):
+        stats = binary_stats_arrays(torch.argmax(logits.detach(), dim=-1), batch["labels"])
+        loss = loss.detach()
+        if counts is not None:
+            all_reduce_sum(loss)
+            all_reduce_sum(stats)
     return {"loss": loss, "stats": stats}
 
 

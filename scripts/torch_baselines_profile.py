@@ -10,9 +10,8 @@ First, the process's first transformer `predict` pass (random init, seed 0,
 for `transformer` and `cnn`: three `predict` passes of one engine on the
 default backends (the first captures its CUDA graphs lazily, the later ones
 replay them), each pass's seconds and reads/s; the third pass under
-`torch.profiler`, device time by kernel (the 14 largest rows) and the
-device's busy share of the pass's wall. Then the attention
-alone at (1, 8, 32768, 32) bf16, the transformer's widest call, on each
+`torch.profiler`, device time by kernel (the 14 largest rows). Then the
+attention alone at (1, 8, 32768, 32) bf16, the transformer's widest call, on each
 `F.scaled_dot_product_attention` backend the card offers and on the default
 choice (CUDA events, 5 runs after 2 warm-ups). Every line names the card and
 its power limit.
