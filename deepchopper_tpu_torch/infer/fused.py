@@ -9,9 +9,11 @@ Port of `deepchopper_tpu/infer/fused.py`:
 * each chunk is chopped and written as soon as all of its reads have
   predictions, in file order, straight from the chunk's byte buffer.
 
-Three threads: the engine's prefetch thread encodes batches, the caller's
-thread feeds the device and waits on its results, and a chop worker votes,
-chops and writes. The chop semantics are those of `chop.pipeline.process_chunk`.
+Four threads: the engine's prefetch thread encodes batches, the caller's
+thread feeds the device and waits on its results, a chop worker votes and
+chops, and the BGZF writer's own thread deflates and writes what the worker
+hands it (`io.bgzf.BgzfWriter`). The chop semantics are those of
+`chop.pipeline.process_chunk`.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ class FusedStats(ChopStats):
     device_s: float = 0.0  # feed thread blocked on device results
     handoff_s: float = 0.0  # feed thread handing batches to the chop worker, blocked on its full queue included
     smooth_s: float = 0.0  # worker: majority vote + region extraction (overlaps the device)
-    chop_write_s: float = 0.0  # worker: record split + BGZF write (overlaps the device)
-    first_write_s: float = 0.0  # wall from the start to the first chopped chunk written
+    chop_write_s: float = 0.0  # worker: record split + handing it to the BGZF writer, its wait included
+    first_write_s: float = 0.0  # wall from the start to the first chopped chunk handed to the writer
     # The engine over this pass: CUDA graph captures (inside device_s), its
     # dispatches, and the tokens it read and computed (padding included).
     compile_s: float = 0.0
@@ -172,8 +174,9 @@ def fused_predict_chop(
 
     def consume(batch, labels, writer) -> None:
         """Vote and extract regions for one batch, then chop the completed
-        chunks. Runs on the worker: the C++ vote and region kernels and the
-        BGZF writer release the GIL, so this overlaps the feed thread."""
+        chunks. Runs on the worker: the C++ vote and region kernels release
+        the GIL, so this overlaps the feed thread, and the writer deflates on
+        its own thread."""
         with timed("chop.vote") as vote:
             pred_lens = (batch.lengths.astype(np.int64) - 1).clip(min=0)
             smoothed = majority_voting_batch(labels, pred_lens, opts.smooth_window_size)

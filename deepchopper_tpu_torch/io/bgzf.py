@@ -1,15 +1,20 @@
 """BGZF (blocked gzip) writer and reader.
 
-Copy of `deepchopper_tpu/io/bgzf.py`. Blocks are independent deflate streams,
-so compression runs many blocks per call in the native library's thread pool,
+Copy of `deepchopper_tpu/io/bgzf.py`, but for where the writer deflates: on a
+thread of its own, behind a bounded queue, so a caller that hands it a burst
+goes back to its own work. Blocks are independent deflate streams, so
+compression runs many blocks per call in the native library's thread pool,
 or, without it, one block per task on a Python thread pool (zlib releases
 the GIL while it compresses).
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import io
 import struct
+import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO
@@ -19,6 +24,9 @@ from ..utils.trace import span
 
 # Max uncompressed payload per BGZF block.
 MAX_BLOCK_SIZE = 65280
+# Most payload a writer holds queued for its compressor thread: two of the
+# fused runner's worst bursts of completed chunks (~32 MB each).
+BACKLOG_BYTES = 64 << 20
 
 # Standard 28-byte BGZF EOF marker block.
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000")
@@ -46,10 +54,19 @@ def compress_block(data: bytes, level: int = 6) -> bytes:
 
 
 class BgzfWriter(io.RawIOBase):
-    """Streaming BGZF writer with thread-pooled block compression.
+    """Streaming BGZF writer that deflates on a thread of its own.
 
-    Blocks are drained in order, so output is deterministic regardless of
-    thread count. Closing writes the 28-byte EOF marker, unless
+    `write` cuts the payload into batches of whole blocks and queues them. One
+    compressor thread deflates each batch (many blocks a call in the native
+    library's thread pool, or without it one block a task on a Python thread
+    pool: zlib releases the GIL) and writes it to the sink in the order it was
+    queued, so the stream is that of one `native.bgzf_compress` over the whole
+    payload, whatever the thread count. The queue holds at most
+    `BACKLOG_BYTES` of payload: `write` waits only while it is full (span
+    `chop.bgzf_wait`). The thread runs while the queue holds work and exits
+    when it empties. An error of the deflate or the sink is raised on the next
+    `write`, `flush` or `close`; `flush` and `close` wait until every queued
+    batch is written. Closing writes the 28-byte EOF marker, unless
     `write_eof=False`: a rank of the shard-parallel chop writes a raw block
     stream, and the merge appends one EOF after every rank's part (BGZF
     blocks are standalone gzip members, so the concatenation is valid).
@@ -62,16 +79,15 @@ class BgzfWriter(io.RawIOBase):
         self._level = level
         self._threads = max(1, threads)
         self._buf = bytearray()
+        self._batch = MAX_BLOCK_SIZE * max(8, self._threads * 8)
         self._native = native.available()
-        if self._native:
-            # Native path: many blocks per call; C++ threads the deflate.
-            self._batch = MAX_BLOCK_SIZE * max(8, self._threads * 8)
-            self._pool = None
-        else:
-            self._batch = MAX_BLOCK_SIZE
-            self._pool = ThreadPoolExecutor(max_workers=self._threads) if threads > 1 else None
-        self._pending: list = []
-        self._max_pending = max(2, threads * 4)
+        self._pool = ThreadPoolExecutor(max_workers=self._threads) if not self._native and threads > 1 else None
+        self._cond = threading.Condition()
+        self._queue: collections.deque[bytes] = collections.deque()
+        self._held = 0  # payload bytes queued or being deflated
+        self._running = False  # a compressor thread is draining the queue
+        self._thread: threading.Thread | None = None  # the last one started
+        self._error: BaseException | None = None
 
     def writable(self) -> bool:
         return True
@@ -84,20 +100,56 @@ class BgzfWriter(io.RawIOBase):
             self._submit(chunk)
         return len(data)
 
+    def _full(self, n: int) -> bool:
+        return self._error is None and self._held > 0 and self._held + n > BACKLOG_BYTES
+
     def _submit(self, chunk: bytes) -> None:
-        with span("chop.bgzf"):
-            if self._native:
-                self._sink.write(native.bgzf_compress(chunk, self._level, self._threads))
-            elif self._pool is None:
-                self._sink.write(compress_block(chunk, self._level))
-            else:
-                self._pending.append(self._pool.submit(compress_block, chunk, self._level))
-                if len(self._pending) >= self._max_pending:
-                    # Drain the oldest half to bound memory while keeping the pool busy.
-                    drain = len(self._pending) // 2
-                    for fut in self._pending[:drain]:
-                        self._sink.write(fut.result())
-                    del self._pending[:drain]
+        """Queue `chunk` for the compressor, waiting while the queue is full."""
+        with self._cond:
+            if self._full(len(chunk)):
+                with span("chop.bgzf_wait"):
+                    self._cond.wait_for(lambda: not self._full(len(chunk)))
+            self._raise_error()
+            self._queue.append(chunk)
+            self._held += len(chunk)
+            if not self._running:
+                self._running = True
+                self._thread = threading.Thread(target=self._compress_queue, name="bgzf-compress", daemon=True)
+                self._thread.start()
+
+    def _compress_queue(self) -> None:
+        """The compressor thread: deflate and write the queued batches in
+        order until the queue is empty, or drop them after an error."""
+        while True:
+            with self._cond:
+                if self._error is not None:
+                    self._queue.clear()
+                    self._held = 0
+                if not self._queue:
+                    self._running = False
+                    self._cond.notify_all()
+                    return
+                chunk = self._queue[0]
+            try:
+                with span("chop.bgzf"):
+                    self._sink.write(self._deflate(chunk))
+            except BaseException as exc:  # noqa: BLE001 - raised again on the writer's caller
+                self._error = exc
+            with self._cond:
+                self._queue.popleft()
+                self._held -= len(chunk)
+                self._cond.notify_all()
+
+    def _deflate(self, chunk: bytes) -> bytes:
+        if self._native:
+            return native.bgzf_compress(chunk, self._level, self._threads)
+        blocks = [chunk[i : i + MAX_BLOCK_SIZE] for i in range(0, len(chunk), MAX_BLOCK_SIZE)]
+        deflate = functools.partial(compress_block, level=self._level)
+        return b"".join(self._pool.map(deflate, blocks) if self._pool is not None else map(deflate, blocks))
+
+    def _raise_error(self) -> None:
+        if self._error is not None:
+            raise self._error
 
     def flush(self) -> None:
         if self.closed or self._sink.closed:
@@ -106,9 +158,9 @@ class BgzfWriter(io.RawIOBase):
             chunk = bytes(self._buf)
             self._buf.clear()
             self._submit(chunk)
-        for fut in self._pending:
-            self._sink.write(fut.result())
-        self._pending.clear()
+        with self._cond:
+            self._cond.wait_for(lambda: not self._running)
+        self._raise_error()
         self._sink.flush()
 
     def close(self) -> None:
@@ -119,10 +171,13 @@ class BgzfWriter(io.RawIOBase):
             if self._write_eof:
                 self._sink.write(BGZF_EOF)
             self._sink.flush()
+        finally:
+            # The compressor exits once the queue is empty, or at once after an error.
+            if self._thread is not None:
+                self._thread.join()
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
             self._sink.close()
-        finally:
             super().close()
 
 

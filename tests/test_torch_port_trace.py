@@ -12,6 +12,7 @@ runs a cell: their spans must name every stage, and the stage totals of
 
 from __future__ import annotations
 
+import io
 import json
 import sys
 import tempfile
@@ -27,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from benchmark.harness.spec import ROOT, metric_reader, path_module
 from benchmark.harness.trace import Trace, Tracer
 from benchmark.tests.conftest import tiny_cell
+from deepchopper_tpu_torch.io import bgzf
 from deepchopper_tpu_torch.io.bgzf import BgzfWriter
 from deepchopper_tpu_torch.utils import trace
 
@@ -137,15 +139,34 @@ def test_a_span_holds_the_profiler_events_of_its_ops():
         assert rec.start_ns <= e.start_ns() <= e.start_ns() + e.duration_ns() <= rec.end_ns
 
 
-def test_bgzf_writes_are_spans_inside_their_caller(tmp_path):
+def test_bgzf_writes_are_spans_inside_their_caller(monkeypatch):
+    """The deflate and write (`chop.bgzf`) run on the writer's own thread, in
+    no span; the caller's wait on a full queue (`chop.bgzf_wait`) sits inside
+    the caller's span, while the first batch is being written."""
+    monkeypatch.setattr(bgzf, "BACKLOG_BYTES", 1)
+    release = threading.Event()
+
+    class HeldSink(io.BytesIO):
+        def write(self, b):
+            release.wait(timeout=30)
+            return super().write(b)
+
     t0 = time.time_ns()
-    with open(tmp_path / "out.bgz", "wb") as sink, _cpu_profile():
-        writer = BgzfWriter(sink, threads=2)
+    opener = threading.Timer(0.2, release.set)
+    with _cpu_profile():
+        writer = BgzfWriter(HeldSink(), threads=2)
+        opener.start()
         with trace.span("chop.records"):
-            writer.write(b"ACGT" * (writer._batch // 2))  # two batches of blocks
+            writer.write(b"ACGT" * (writer._batch // 2))  # two batches: the second waits for the first
         writer.close()
-    names = [(r.name, r.parent) for r in _between(t0, time.time_ns()) if r.name == "chop.bgzf"]
-    assert names == [("chop.bgzf", "chop.records")] * 2
+    opener.join(timeout=30)
+    assert not opener.is_alive() and not writer._thread.is_alive()
+    got = [r for r in _between(t0, time.time_ns()) if r.name.startswith("chop.bgzf")]
+    assert [(r.name, r.parent) for r in got if r.name == "chop.bgzf"] == [("chop.bgzf", None)] * 2
+    (wait,) = [r for r in got if r.name == "chop.bgzf_wait"]
+    assert wait.parent == "chop.records" and wait.end_ns - wait.start_ns >= 0.1e9
+    first = min((r for r in got if r.name == "chop.bgzf"), key=lambda r: r.start_ns)
+    assert max(first.start_ns, wait.start_ns) < first.end_ns <= wait.end_ns
 
 
 @pytest.fixture(scope="module")
@@ -174,10 +195,10 @@ def test_the_fused_pass_records_every_stage(traced_runs):
     for r in spans:
         by_name.setdefault(r.name, []).append(r)
     assert set(PREDICT_SPANS) <= set(by_name)
-    assert all(r.parent is None for n in PREDICT_SPANS if n != "chop.bgzf" for r in by_name[n])
-    # The BGZF writes the worker does sit inside its record split; the rest
-    # is the writer's close, on the feed thread.
-    assert {r.parent for r in by_name["chop.bgzf"]} <= {"chop.records", None}
+    # The BGZF writes run on the writer's own thread; the worker's waits on
+    # its full queue sit inside the record split.
+    assert all(r.parent is None for n in PREDICT_SPANS for r in by_name[n])
+    assert all(r.parent == "chop.records" for r in by_name.get("chop.bgzf_wait", ()))
     # Every batch the encode thread emitted goes through each stage once.
     passes = win["passes"]
     n_batches = len(by_name["source.encode"])
@@ -224,6 +245,17 @@ def test_span_metrics_read_shares_of_their_own_kind(traced_runs, metric, monkeyp
     monkeypatch.delattr(utils, "trace")
     monkeypatch.setitem(sys.modules, "deepchopper_tpu_torch.utils.trace", None)
     assert read(traced_runs[kind][0]) is None
+
+
+def test_bgzf_wait_share_reads_the_writers_queue_only_where_it_has_one(traced_runs, monkeypatch):
+    """The tiny fused run never fills the writer's 64 MB queue, so the share
+    reads 0; a program whose writer deflates on its caller's thread (no
+    `BACKLOG_BYTES`) cannot wait on one, and reads nothing."""
+    read = metric_reader("bgzf_wait_share.predict")
+    run = traced_runs["fused"][0]
+    assert read(run) == 0.0
+    monkeypatch.delattr(bgzf, "BACKLOG_BYTES")
+    assert read(run) is None
 
 
 def test_idle_shares_count_only_device_idle_time_inside_the_spans(monkeypatch):
